@@ -261,6 +261,11 @@ class StereoPipeline:
     Owns the configs and a StageTimer with the reference's stage names;
     ``run`` executes the pipeline on one pair. ``run_batch`` of the JAX
     package is not ported yet.
+
+    ``device``: where the pipeline runs, the CUDA card unless the caller
+    asks for the CPU. ``run`` and ``correspondences`` move their inputs
+    (numpy arrays or tensors) there; a ``generator`` must live there too.
+    A CUDA device without a card raises: there is no fallback to the CPU.
     """
 
     def __init__(
@@ -272,7 +277,13 @@ class StereoPipeline:
         verbose: int = 0,
         descriptor_tables: features.DescriptorTables | None = None,
         solver_tables: solvers.SolverTables | None = None,
+        device: torch.device | str = "cuda",
     ):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"StereoPipeline(device={str(device)!r}): no CUDA device; "
+                "pass device='cpu' to run the plain CPU path")
         self.det_cfg = det_cfg
         self.desc_cfg = desc_cfg
         self.match_cfg = match_cfg
@@ -281,10 +292,18 @@ class StereoPipeline:
         self.solver_tables = solver_tables
         self.timer = StageTimer(verbose=verbose)
 
+    def _to(self, x):
+        """numpy array or tensor -> tensor on the pipeline's device
+        (floating point as float32)."""
+        if x is None:
+            return None
+        x = torch.as_tensor(x, device=self.device)
+        return x.to(torch.float32) if x.is_floating_point() else x
+
     def correspondences(self, img1, img2) -> Correspondences:
         return get_correspondences(
-            img1, img2, self.det_cfg, self.desc_cfg, self.match_cfg,
-            timer=self.timer, tables=self.descriptor_tables,
+            self._to(img1), self._to(img2), self.det_cfg, self.desc_cfg,
+            self.match_cfg, timer=self.timer, tables=self.descriptor_tables,
         )
 
     def run(self, img1, img2, K1, K2, dist1, dist2,
@@ -295,8 +314,10 @@ class StereoPipeline:
         with self.timer.stage("robEstimationAndRef") as h:
             pose = estimate_pose(
                 corr.pts1, corr.pts2, corr.mask, corr.quality,
-                K1, K2, dist1, dist2, self.pose_cfg, generator=generator,
-                uniforms=uniforms, degen_uniforms=degen_uniforms,
+                self._to(K1), self._to(K2), self._to(dist1),
+                self._to(dist2), self.pose_cfg, generator=generator,
+                uniforms=self._to(uniforms),
+                degen_uniforms=self._to(degen_uniforms),
                 tables=self.solver_tables,
             )
             h["outputs"] = pose

@@ -32,7 +32,8 @@ def test_port_runs_without_importing_jax():
             c.DetectorConfig(max_keypoints=64, fast_threshold=12.0,
                              column_bands=4),
             pose_cfg=c.PoseConfig(
-                robust=c.RobustConfig(batch_hypotheses=8, max_batches=2)))
+                robust=c.RobustConfig(batch_hypotheses=8, max_batches=2)),
+            device="cpu")
         corr, pose = pipe.run(torch.tensor(img1), torch.tensor(img2),
                               torch.tensor(K), torch.tensor(K),
                               torch.zeros(5), torch.zeros(5),

@@ -47,7 +47,7 @@ def _run_both(height, width, kp, bands, batch, batches, seed=0):
     pipe = tp.StereoPipeline(
         tcfg.DetectorConfig(**det), tcfg.DescriptorConfig(),
         tcfg.MatchingConfig(),
-        tcfg.PoseConfig(robust=tcfg.RobustConfig(**rob)))
+        tcfg.PoseConfig(robust=tcfg.RobustConfig(**rob)), device="cpu")
     tcorr, tpose = pipe.run(
         t(img1), t(img2), t(K), t(K), torch.zeros(5), torch.zeros(5),
         uniforms=jax_uniforms(key, batches, batch, 5),
@@ -100,7 +100,7 @@ def test_pipeline_runs_on_tables_loaded_from_the_jax_arrays():
                                                      max_batches=2)))
     outs = []
     for kw in ({}, dict(descriptor_tables=dtab, solver_tables=stab)):
-        pipe = tp.StereoPipeline(*cfgs, **kw)
+        pipe = tp.StereoPipeline(*cfgs, **kw, device="cpu")
         outs.append(pipe.run(t(img1), t(img2), t(K), t(K), torch.zeros(5),
                              torch.zeros(5),
                              torch.Generator().manual_seed(3)))
