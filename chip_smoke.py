@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -8,19 +8,30 @@ Phases (any failure exits non-zero):
   2. fused FAST+NMS kernel vs its plain version on the scene's images at
      (1, 512, 1392) and (2, 512, 1392): equal away from the border, up to
      f32 ties inside an NMS window;
-  3. fused 2-NN kernel vs its plain version at 2048 x 2048 on the scene's
-     descriptors, xy_mode 0, 1 and 2, with ~10% invalid columns and
-     planted ties: bit-exact;
+  3. fused binary 2-NN kernel vs its plain version at 2048 x 2048 on the
+     scene's ORB descriptors, xy_mode 0, 1 and 2, with ~10% invalid
+     columns and planted ties: bit-exact;
+  3b. fused float 2-NN kernel vs its plain version (cuBLAS fp32, TF32
+     off) on the scene's SIFT (2048 x 2048 x 128) and M-SURF (x 64)
+     descriptors, xy_mode 0, 1 and 2, ~10% invalid columns, planted
+     duplicate candidates and a block of fully gated rows: distances
+     within 1e-5 (1 + |d|), idx equal where the gap exceeds 1e-5, the
+     duplicates' lowest column and the gated rows' (1e9, 1e9, -1) exact;
   4. ``StereoPipeline.run`` at the flagship config (FAST t=12, 2048
      keypoints, ORB, GMBSOF, 96 x 12 five-point hypotheses) on a seeded
      synthetic 1392x512 stereo scene with a planted pose: one warm run,
      then timed runs; launch counters must show both kernels on the path;
      the pose must meet the accuracy bars;
   5. the port's CPU path on the same pair: keypoint and match slots agree
-     with the card's.
+     with the card's;
+  4b. the same at SIFT/SIFT + GMBSOF + GMS (2048 keypoints, 96 x 12):
+     warm run, timed runs, the float 2-NN kernel launched twice and no
+     other, accuracy bars, the CPU path's slots agree with the card's;
+  4c. SURF/SURF + GMBSOF, one run: the float 2-NN kernel twice, accuracy
+     bars.
 
-Prints the card's name and power limit, a JSON ``kernels`` line, a JSON
-``step`` line, and as its last line
+Prints a JSON ``kernels`` line, one JSON ``step`` line per path, the
+card's name and power limit, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 Imports nothing of JAX.
 """
@@ -42,6 +53,12 @@ TIMED_RUNS = 20
 # accuracy bars against the planted pose (tests/test_pipeline.py:88-89)
 MAX_ROT_DEG, MAX_TANG_DEG = 1.0, 5.0
 MIN_CORR, MIN_INLIERS = 300, 200
+# published H100 SXM peaks (on-chip-measurement guide; CUDA C++
+# Programming Guide throughput table, compute capability 9.0)
+HBM_BYTES_S = 3.35e12
+FP32_FLOP_S = 67e12
+SM_CLOCK_HZ = 1.98e9  # maximum boost clock
+POPC_PER_CLK_SM = 16
 
 
 # ---------------------------------------------------------------------------
@@ -206,9 +223,12 @@ def _nvidia_smi() -> str:
 
 
 def _rot_deg(Ra, Rb):
-    c = (np.trace(np.asarray(Ra, np.float64).T @ np.asarray(Rb, np.float64))
-         - 1.0) / 2.0
-    return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+    """Angle of Ra^T Rb from the chordal distance |Ra - Rb|_F = 2 sqrt(2)
+    sin(angle / 2): unlike the trace form, it does not saturate at 0 when
+    a float32 rotation is orthonormal only to ~1e-6."""
+    d = np.linalg.norm(np.asarray(Ra, np.float64) - np.asarray(Rb, np.float64))
+    half = np.arcsin(min(1.0, d / (2.0 * np.sqrt(2.0))))
+    return float(np.degrees(2.0 * half))
 
 
 def _dir_deg(a, b):
@@ -297,6 +317,173 @@ def check_knn2(torch, knn2, cases):
     return max_err
 
 
+def knn2_l2_inputs(torch, rng, d1, d2, xy1, xy2, dev, n_gated=64,
+                   n_planted=16):
+    """Float 2-NN cases on the main path's descriptors: ~10% invalid
+    columns, planted duplicate candidates (two valid columns holding a
+    copy of one query, placed on its predicted position) and a block of
+    `n_gated` rows whose every candidate lies outside the gate. Returns
+    (cases by xy_mode, planted (query, low column, high column) arrays,
+    gated rows)."""
+    n1, n2 = d1.shape[0], d2.shape[0]
+    d2, xy2 = d2.clone(), xy2.clone()
+    q = torch.from_numpy(rng.choice(n1 - n_gated, n_planted,
+                                    replace=False)).to(dev)
+    cols = torch.from_numpy(rng.choice(n2, 2 * n_planted,
+                                       replace=False)).to(dev)
+    lo = torch.minimum(cols[:n_planted], cols[n_planted:])
+    hi = torch.maximum(cols[:n_planted], cols[n_planted:])
+    valid2 = torch.from_numpy(rng.random(n2) > 0.1).to(dev)
+    pred = (xy1 + torch.from_numpy(
+        rng.normal(scale=8.0, size=(n1, 2)).astype(np.float32)).to(dev))
+    gated = torch.arange(n1 - n_gated, n1, device=dev)
+    pred[gated] = 1e6
+    for c in (lo, hi):
+        d2[c] = d1[q]
+        valid2[c] = True
+        xy2[c] = pred[q]
+    rad_q = torch.from_numpy(
+        (rng.uniform(20, 80, n1) ** 2).astype(np.float32)).to(dev)
+    rad_c = torch.from_numpy(
+        (rng.uniform(20, 80, n2) ** 2).astype(np.float32)).to(dev)
+    d1, d2, xy2 = d1.contiguous(), d2.contiguous(), xy2.contiguous()
+    cases = {0: (d1, d2, valid2), 1: (d1, d2, valid2, pred, rad_q, xy2),
+             2: (d1, d2, valid2, pred, rad_c, xy2)}
+    return cases, (q, lo, hi), gated
+
+
+def check_knn2_l2(torch, knn2, cases, planted, gated):
+    """Kernel vs plain on the card: |d_k - d_p| <= 1e-5 (1 + |d_p|) for
+    d_best and d_second, idx equal wherever the plain gap d_second -
+    d_best exceeds 1e-5; the kernel returns the lowest column and
+    d_second == d_best on every planted duplicate, and exactly (1e9, 1e9,
+    -1) on every gated row. Returns the max |kernel - plain| of the
+    distances."""
+    q, lo, hi = planted
+    max_err = 0.0
+    for mode, args in cases.items():
+        got = knn2.knn2_l2(*args, xy_mode=mode)
+        want = knn2.knn2_l2_plain(*args, xy_mode=mode)
+        torch.cuda.synchronize()
+        (gd, gs, gi), (wd, ws, wi) = got, want
+        for name, g, w in (("d_best", gd, wd), ("d_second", gs, ws)):
+            n_bad = int(((g - w).abs() > 1e-5 * (1 + w.abs())).sum())
+            if n_bad:
+                raise AssertionError(f"knn2_l2 xy_mode={mode}: {name} off "
+                                     f"tolerance in {n_bad} rows")
+            max_err = max(max_err, float((g.double() - w.double()).abs()
+                                         .max()))
+        gap = (ws - wd) > 1e-5
+        n_bad = int(((gi != wi) & gap).sum())
+        if n_bad:
+            raise AssertionError(f"knn2_l2 xy_mode={mode}: idx differs in "
+                                 f"{n_bad} rows with a gap > 1e-5")
+        if not (torch.equal(gi[q], lo.to(torch.int32))
+                and torch.equal(gs[q], gd[q])):
+            raise AssertionError(f"knn2_l2 xy_mode={mode}: planted "
+                                 "duplicates do not return the lowest "
+                                 "column with d_second == d_best")
+        if mode and not (bool((gd[gated] == 1e9).all())
+                         and bool((gs[gated] == 1e9).all())
+                         and bool((gi[gated] == -1).all())):
+            raise AssertionError(f"knn2_l2 xy_mode={mode}: gated rows not "
+                                 "exactly (1e9, 1e9, -1)")
+        if int((gi >= 0).sum()) < 100:
+            raise AssertionError(f"knn2_l2 xy_mode={mode}: implausibly few "
+                                 "neighbours")
+    return max_err
+
+
+def drive_path(torch, kernels, pipe, i1, i2, Kt, dist, gen, truth,
+               expected, timed_runs):
+    """Drive one path: counters from 0, one (warm) run, counters read
+    back and checked against `expected`, the pose held to the accuracy
+    bars against `truth` (R, t); then `timed_runs` timed runs, the stage
+    split, peak memory and one profiled step. Returns (first run's (corr,
+    pose), step record, failures)."""
+    from matchinglib_poselib_torch.utils.profiling import HostSyncs
+
+    kernels.reset_launch_counts()
+    syncs0 = HostSyncs.count
+    corr, pose = pipe.run(i1, i2, Kt, Kt, dist, dist, gen)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    host_syncs = HostSyncs.count - syncs0
+    failures = [f"{name} launched {launches[name]} times on the path "
+                f"(expected {n})" for name, n in expected.items()
+                if launches[name] != n]
+    n_corr = int(corr.n)
+    n_inl = int(pose.n_inliers)
+    rot_err = _rot_deg(truth[0], pose.R.cpu().numpy())
+    t_err = _dir_deg(truth[1], pose.t.cpu().numpy())
+    if not bool(torch.isfinite(pose.R).all() and torch.isfinite(pose.t).all()
+                and torch.isfinite(corr.pts2).all()):
+        failures.append("non-finite pose or correspondences")
+    if pose.R.shape != (3, 3) or corr.mask.shape != (
+            pipe.det_cfg.max_keypoints,):
+        failures.append("unexpected output shapes")
+    if rot_err >= MAX_ROT_DEG or t_err >= MAX_TANG_DEG:
+        failures.append(f"pose off the planted pose: rot {rot_err:.4f} deg, "
+                        f"t {t_err:.4f} deg")
+    if n_corr < MIN_CORR or n_inl < MIN_INLIERS:
+        failures.append(f"too few correspondences/inliers: {n_corr}/{n_inl}")
+    record = {"launches": launches, "host_syncs_per_pair": host_syncs,
+              "n_corr": n_corr, "n_inliers": n_inl, "rot_err_deg": rot_err,
+              "t_err_deg": t_err}
+    if timed_runs:
+        # timed runs (the generator stream continues: steady-state steps)
+        pipe.timer.reset()
+        torch.cuda.reset_peak_memory_stats(i1.device)
+        step_ms = []
+        for _ in range(timed_runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.run(i1, i2, Kt, Kt, dist, dist, gen)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        record.update({
+            "runs": timed_runs, "ms_mean": float(np.mean(step_ms)),
+            "ms_median": float(np.median(step_ms)),
+            "ms_min": float(np.min(step_ms)),
+            "stages_ms": {k: v / timed_runs
+                          for k, v in pipe.timer.times_ms.items()},
+            "peak_mem_mib": torch.cuda.max_memory_allocated(i1.device)
+            / 2**20,
+        })
+        busy_ms, device_ops, prof_wall_ms = _profile_step(
+            torch, lambda: pipe.run(i1, i2, Kt, Kt, dist, dist, gen))
+        record["profiled_run"] = {"wall_ms": prof_wall_ms,
+                                  "device_busy_ms": busy_ms,
+                                  "device_ops": device_ops}
+    return (corr, pose), record, failures
+
+
+def cpu_agreement(torch, pipeline, corr, img1, img2, det, desc, match):
+    """Share of keypoint slots (mask and xy within 1e-4) and match slots
+    (mask; partner within 1e-4 where both keep) on which the port's CPU
+    path agrees with the card's run."""
+    cpu = pipeline.get_correspondences(
+        torch.from_numpy(img1), torch.from_numpy(img2), det, desc, match)
+    kp = min(
+        float(((a.mask.cpu() == b.mask)
+               & ((a.xy.cpu() - b.xy).abs().amax(-1) < 1e-4)).float().mean())
+        for a, b in ((corr.kps1, cpu.kps1), (corr.kps2, cpu.kps2)))
+    gm, cm = corr.mask.cpu(), cpu.mask
+    both = gm & cm
+    partners = float(((corr.pts2.cpu() - cpu.pts2).abs().amax(-1)
+                      < 1e-4)[both].float().mean())
+    return {"keypoints": kp, "matches": float((gm == cm).float().mean()),
+            "partners": partners}
+
+
+def _bound(bytes_moved, time_ops):
+    """(bound ms, what bounds it): the larger of the bytes over the HBM
+    rate and the operation time."""
+    t_bytes = bytes_moved / HBM_BYTES_S * 1e3
+    t_ops = time_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -309,15 +496,15 @@ def main(argv=None) -> int:
         return 2
     from matchinglib_poselib_torch import config as cfg
     from matchinglib_poselib_torch.models import pipeline
-    from matchinglib_poselib_torch.ops import kernels
+    from matchinglib_poselib_torch.ops import features, kernels
     from matchinglib_poselib_torch.ops.kernels import _build, fast_nms, knn2
-    from matchinglib_poselib_torch.utils.profiling import HostSyncs
 
     smi = _nvidia_smi()
     dev = torch.device("cuda:0")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     rng = np.random.default_rng(args.seed)
 
-    # 1. build every kernel of the path, one nvcc per source in parallel
+    # 1. build every kernel of the paths, one nvcc per source in parallel
     t0 = time.perf_counter()
     _build.build()
     build_s = time.perf_counter() - t0
@@ -332,6 +519,12 @@ def main(argv=None) -> int:
     match = cfg.MatchingConfig(matcher_name="GMBSOF")
     pose_cfg = cfg.PoseConfig(
         robust=cfg.RobustConfig(batch_hypotheses=96, max_batches=12))
+    sift = (cfg.DetectorConfig(kind="SIFT", max_keypoints=2048),
+            cfg.DescriptorConfig(kind="SIFT"),
+            cfg.MatchingConfig(matcher_name="GMBSOF", gms_filter=True))
+    surf = (cfg.DetectorConfig(kind="SURF", max_keypoints=2048),
+            cfg.DescriptorConfig(kind="SURF"),
+            cfg.MatchingConfig(matcher_name="GMBSOF"))
     img1, img2, K, R_true, t_true = render_scene(args.seed)
     i1 = torch.from_numpy(img1).to(dev)
     i2 = torch.from_numpy(img2).to(dev)
@@ -354,7 +547,6 @@ def main(argv=None) -> int:
 
     # 3. K2a: fused 2-NN vs plain at 2048 x 2048 on the scene's descriptors
     corr = pipeline.get_correspondences(i1, i2, det, desc, match)
-    from matchinglib_poselib_torch.ops import features
     d1, _ = features.compute_descriptors(i1, corr.kps1, desc,
                                          features.detector_bands(det))
     d2, _ = features.compute_descriptors(i2, corr.kps2, desc,
@@ -370,108 +562,116 @@ def main(argv=None) -> int:
     k2_dev_ms = {m: _device_ms(torch, f) for m, f in k2.items()}
     k2_plain_dev_ms = {m: _device_ms(torch, f) for m, f in k2_plain.items()}
 
-    # 4. the main path on the card: counters from 0, one run, read back
+    # 3b. K2b: float 2-NN vs plain on the scene's SIFT and M-SURF
+    # descriptors (the float paths' shapes)
+    k2b_err = 0.0
+    k2b = {}
+    for name, (dcfg, ccfg, _) in (("sift", sift), ("msurf", surf)):
+        kp1 = features.detect_keypoints(i1, dcfg)
+        kp2 = features.detect_keypoints(i2, dcfg)
+        f1, _ = features.compute_descriptors(i1, kp1, ccfg)
+        f2, _ = features.compute_descriptors(i2, kp2, ccfg)
+        fcases, planted, gated = knn2_l2_inputs(torch, rng, f1, f2, kp1.xy,
+                                                kp2.xy, dev)
+        k2b_err = max(k2b_err, check_knn2_l2(torch, knn2, fcases, planted,
+                                             gated))
+        (s1, depth), s2 = f1.shape, f2.shape[0]
+        rec = {"shape": [s1, s2, depth]}
+        rec["bound_ms"], rec["bound_by"] = _bound(
+            (s1 + s2) * depth * 4 + s2 + s1 * 12,
+            (2 * s1 * s2 * depth + 2 * (s1 + s2) * depth + 4 * s1 * s2)
+            / FP32_FLOP_S)
+        for m in (0, 1):
+            fk = functools.partial(knn2.knn2_l2, *fcases[m], xy_mode=m)
+            fp = functools.partial(knn2.knn2_l2_plain, *fcases[m], xy_mode=m)
+            rec[m] = {"ms": _cuda_ms(torch, fk),
+                      "plain_ms": _cuda_ms(torch, fp),
+                      "device_ms": _device_ms(torch, fk),
+                      "plain_device_ms": _device_ms(torch, fp)}
+        k2b[name] = rec
+
     Kt = torch.from_numpy(K).to(dev)
     dist = torch.zeros(5, device=dev)
-    pipe = pipeline.StereoPipeline(det, desc, match, pose_cfg)
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    kernels.reset_launch_counts()
-    syncs0 = HostSyncs.count
-    corr, pose = pipe.run(i1, i2, Kt, Kt, dist, dist, gen)
-    torch.cuda.synchronize()
-    launches = kernels.launch_counts()
-    host_syncs = HostSyncs.count - syncs0
     failures = []
-    if launches["fast_nms"] != 2:
-        failures.append(f"fast_nms launched {launches['fast_nms']} times "
-                        "on the main path (expected 2: one per image)")
-    if launches["knn2"] != 2:
-        failures.append(f"knn2 launched {launches['knn2']} times on the "
-                        "main path (expected 2: ratio pass + guided pass)")
-    n_corr = int(corr.n)
-    n_inl = int(pose.n_inliers)
-    rot_err = _rot_deg(R_true, pose.R.cpu().numpy())
-    t_err = _dir_deg(t_true, pose.t.cpu().numpy())
-    finite = bool(torch.isfinite(pose.R).all() and torch.isfinite(pose.t).all()
-                  and torch.isfinite(corr.pts2).all())
-    if not finite:
-        failures.append("non-finite pose or correspondences")
-    if pose.R.shape != (3, 3) or corr.mask.shape != (det.max_keypoints,):
-        failures.append("unexpected output shapes")
-    if rot_err >= MAX_ROT_DEG or t_err >= MAX_TANG_DEG:
-        failures.append(f"pose off the planted pose: rot {rot_err:.4f} deg, "
-                        f"t {t_err:.4f} deg")
-    if n_corr < MIN_CORR or n_inl < MIN_INLIERS:
-        failures.append(f"too few correspondences/inliers: {n_corr}/{n_inl}")
+    steps = []
 
-    # timed runs (same generator stream continues: steady-state step time)
-    pipe.timer.reset()
-    torch.cuda.reset_peak_memory_stats(dev)
-    step_ms = []
-    for _ in range(TIMED_RUNS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pipe.run(i1, i2, Kt, Kt, dist, dist, gen)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    stages = {k: v / TIMED_RUNS for k, v in pipe.timer.times_ms.items()}
-    peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
-    busy_ms, device_ops, prof_wall_ms = _profile_step(
-        torch, lambda: pipe.run(i1, i2, Kt, Kt, dist, dist, gen))
+    def path(name, cfgs, expected, timed_runs):
+        pipe = pipeline.StereoPipeline(*cfgs, pose_cfg)
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        (c, _), rec, fails = drive_path(torch, kernels, pipe, i1, i2, Kt,
+                                        dist, gen, (R_true, t_true),
+                                        expected, timed_runs)
+        failures.extend(f"{name}: {f}" for f in fails)
+        return c, rec
 
+    # 4. the flagship path on the card: counters from 0, one run, read back
+    corr, rec = path("FAST/ORB", (det, desc, match),
+                     {"fast_nms": 2, "knn2": 2}, TIMED_RUNS)
+    launches = rec["launches"]
     # 5. the port's CPU path on the same pair agrees with the card's
-    cpu_corr = pipeline.get_correspondences(
-        torch.from_numpy(img1), torch.from_numpy(img2), det, desc, match)
-    kp_agree = min(
-        float(((a.mask.cpu() == b.mask)
-               & ((a.xy.cpu() - b.xy).abs().amax(-1) < 1e-4)).float().mean())
-        for a, b in ((corr.kps1, cpu_corr.kps1), (corr.kps2, cpu_corr.kps2))
-    )
-    gm, cm = corr.mask.cpu(), cpu_corr.mask
-    match_agree = float((gm == cm).float().mean())
-    both = gm & cm
-    pts_agree = float(((corr.pts2.cpu() - cpu_corr.pts2).abs().amax(-1)
-                       < 1e-4)[both].float().mean())
-    if kp_agree < 0.99 or match_agree < 0.99 or pts_agree < 0.99:
-        failures.append(f"card vs CPU slots: keypoints {kp_agree:.4f}, "
-                        f"matches {match_agree:.4f}, partners {pts_agree:.4f}")
+    rec["cpu_agree"] = cpu_agreement(torch, pipeline, corr, img1, img2, det,
+                                     desc, match)
+    steps.append(("FAST t=12 / 2048 kp / ORB / GMBSOF / 96x12 5pt USAC",
+                  rec))
+    # 4b. SIFT/SIFT + GMBSOF + GMS
+    corr, rec = path("SIFT/SIFT+GMS", sift,
+                     {"knn2_l2": 2, "knn2": 0, "fast_nms": 0}, TIMED_RUNS)
+    sift_launches = rec["launches"]
+    rec["cpu_agree"] = cpu_agreement(torch, pipeline, corr, img1, img2,
+                                     *sift)
+    steps.append(("SIFT / 2048 kp / SIFT / GMBSOF + GMS / 96x12 5pt USAC",
+                  rec))
+    # 4c. SURF/SURF + GMBSOF, one run
+    _, rec = path("SURF/SURF", surf, {"knn2_l2": 2, "knn2": 0,
+                                      "fast_nms": 0}, 0)
+    steps.append(("SURF / 2048 kp / M-SURF / GMBSOF / 96x12 5pt USAC", rec))
+    for c_name, rec in steps:
+        agree = rec.get("cpu_agree")
+        if agree and min(agree.values()) < 0.99:
+            failures.append(f"{c_name}: card vs CPU slots {agree}")
 
+    # bounds from this run's shapes
+    n_px = HEIGHT * WIDTH
+    k1_bound = _bound(2 * n_px * 4, n_px * 128 / FP32_FLOP_S)
+    n1 = n2 = det.max_keypoints
+    k2_bound = _bound((n1 + n2) * 32 + n2 + n1 * 12,
+                      n1 * n2 * 8 / (POPC_PER_CLK_SM * n_sm * SM_CLOCK_HZ))
     kernels_line = {"kernels": [
         {"name": "fast_nms", "route": "cuda",
          "source": "matchinglib_poselib_torch/csrc/fast_nms.cu",
          "replaces": "matchinglib_poselib_tpu/ops/pallas/fast.py:113",
          "launches": launches["fast_nms"], "max_abs_err": k1_err,
-         "tie_mismatches": k1_ties,
          "ms": k1_ms, "plain_ms": k1_plain_ms,
+         "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
+         "library_ms": None, "tie_mismatches": k1_ties,
          "device_ms": k1_dev_ms, "plain_device_ms": k1_plain_dev_ms},
         {"name": "knn2", "route": "cuda",
          "source": "matchinglib_poselib_torch/csrc/knn2.cu",
-         "replaces": "matchinglib_poselib_tpu/ops/pallas/knn.py:205",
+         "replaces": "matchinglib_poselib_tpu/ops/pallas/knn.py:131",
          "launches": launches["knn2"], "max_abs_err": k2_err,
          "ms": k2_ms[0], "plain_ms": k2_plain_ms[0],
+         "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
+         "library_ms": None,
          "device_ms": k2_dev_ms[0], "plain_device_ms": k2_plain_dev_ms[0],
          "ms_guided": k2_ms[1], "plain_ms_guided": k2_plain_ms[1],
          "device_ms_guided": k2_dev_ms[1],
          "plain_device_ms_guided": k2_plain_dev_ms[1]},
+        {"name": "knn2_l2", "route": "cuda",
+         "source": "matchinglib_poselib_torch/csrc/knn2_l2.cu",
+         "replaces": "matchinglib_poselib_tpu/ops/pallas/knn.py:51",
+         "launches": sift_launches["knn2_l2"], "max_abs_err": k2b_err,
+         "ms": k2b["sift"][0]["ms"], "plain_ms": k2b["sift"][0]["plain_ms"],
+         "device_ms": k2b["sift"][0]["device_ms"],
+         "plain_device_ms": k2b["sift"][0]["plain_device_ms"],
+         "bound_ms": k2b["sift"]["bound_ms"],
+         "bound_by": k2b["sift"]["bound_by"], "library_ms": None,
+         "by_shape": k2b},
     ]}
-    step_line = {"step": {
-        "config": "FAST t=12 / 2048 kp / ORB / GMBSOF / 96x12 5pt USAC",
-        "image": [HEIGHT, WIDTH], "seed": args.seed, "runs": TIMED_RUNS,
-        "kernel_shapes": {"fast_nms": [1, HEIGHT, WIDTH],
-                          "knn2": [det.max_keypoints, det.max_keypoints]},
-        "ms_mean": float(np.mean(step_ms)),
-        "ms_median": float(np.median(step_ms)),
-        "ms_min": float(np.min(step_ms)), "stages_ms": stages,
-        "host_syncs_per_pair": host_syncs, "peak_mem_mib": peak_mib,
-        "profiled_run": {"wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
-                         "device_ops": device_ops},
-        "build_s": build_s, "n_corr": n_corr, "n_inliers": n_inl,
-        "rot_err_deg": rot_err, "t_err_deg": t_err,
-        "cpu_agree": {"keypoints": kp_agree, "matches": match_agree,
-                      "partners": pts_agree},
-    }}
     print(json.dumps(kernels_line))
-    print(json.dumps(step_line))
+    for c_name, rec in steps:
+        print(json.dumps({"step": {"config": c_name, "image": [HEIGHT, WIDTH],
+                                   "seed": args.seed, "build_s": build_s,
+                                   **rec}}))
     if failures:
         for f in failures:
             print(f"chip_smoke: FAILED: {f}", file=sys.stderr)

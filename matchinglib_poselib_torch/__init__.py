@@ -3,8 +3,9 @@
 The JAX package beside it is the reference this port is held against. The
 port keeps its module and function names and its fixed-shape, masked slot
 layout, runs plain PyTorch on CPU tensors, and on CUDA tensors replaces the
-two Pallas TPU kernels with CUDA C++ kernels written for sm_90a
-(``ops/kernels``; sources under ``csrc/``).
+Pallas TPU kernels (FAST+NMS, the binary and the float 2-NN bodies) with
+CUDA C++ kernels written for sm_90a (``ops/kernels``; sources under
+``csrc/``).
 
 The port imports torch and never jax.
 """

@@ -66,7 +66,9 @@ class DetectorConfig:
     features.cpp:506): we keep the strongest response per spatial grid cell.
     """
 
-    kind: str = "FAST"  # FAST | HARRIS | ORB (FAST+Harris rank) | SHITOMASI
+    # the port takes FAST | ORB | BRISK (single scale), SIFT (DoG) and SURF
+    # (Hessian); other names of features.DETECTOR_ALIASES raise
+    kind: str = "FAST"
     max_keypoints: int = 2048  # static array capacity; masked when fewer
     fast_threshold: float = 20.0
     grid_cells: int = 0  # 0 = auto from max_keypoints (adaptive like reference)
@@ -87,7 +89,9 @@ class DetectorConfig:
 class DescriptorConfig:
     """Descriptor extraction (reference: features.cpp:397-484,849-971)."""
 
-    kind: str = "ORB"  # ORB (256-bit binary) | SIFT (128-f32) | BOOST-like later
+    # the port takes ORB (256-bit binary), SIFT (128 x f32) and SURF / KAZE
+    # (M-SURF, 64 x f32); other names of features.DESCRIPTOR_ALIASES raise
+    kind: str = "ORB"
     patch_size: int = 31
     oriented: bool = True
 

@@ -2,8 +2,10 @@
 (port of ``models/pipeline.py``).
 
 - get_correspondences == matchinglib::getCorrespondences
-  (correspondences.cpp:148-519): FAST detection -> ORB description ->
-  ratio-test matching -> (GMBSOF) SOF field -> radius-guided rematch.
+  (correspondences.cpp:148-519): detection (FAST, SIFT, SURF) ->
+  description (ORB, SIFT, M-SURF) -> ratio-test matching (Hamming or
+  squared L2) -> (GMBSOF) SOF field -> radius-guided rematch -> optional
+  GMS filter.
 - estimate_pose == the poselib-test single-pair flow
   (tests/poselib-test/main.cpp:1461-1560): camera coords, Oulu
   undistortion, robust 5pt E, IRLS refinement, cheirality-voted pose
@@ -11,7 +13,7 @@
 
 Outputs are fixed-shape masked tensors on the inputs' device. Branches of
 the JAX package that are not ported yet (other detectors and descriptors,
-BOLD, GMS/SOF-filter/VFC/subpixel filters, Halign, AutoTh, BA, run_batch)
+BOLD, SOF-filter/VFC/subpixel filters, Halign, AutoTh, BA, run_batch)
 raise NotImplementedError.
 """
 
@@ -86,7 +88,6 @@ def get_correspondences(
     StageTimer charged with keypoints / descriptors / matching.
     """
     unported = [name for name, on in (
-        ("gms_filter", match_cfg.gms_filter),
         ("sof_filter", match_cfg.sof_filter
          and match_cfg.matcher_name.upper() != "GMBSOF"),
         ("subpix_refine", match_cfg.subpix_refine),
@@ -96,6 +97,7 @@ def get_correspondences(
         raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
     if shape is None:
         shape = tuple(img1.shape)
+    binary = features.is_binary_descriptor(desc_cfg.kind)
     # ratio test when enabled, cross-checking as the fallback without it
     # (match_statOptFlow.cpp:149-156)
     cross = match_cfg.cross_check or not match_cfg.ratio_test
@@ -113,7 +115,7 @@ def get_correspondences(
         h["outputs"] = (d1, d2)
     with _stage(timer, "matching") as h:
         res = matching.match_descriptors(
-            d1, d2, kps1.mask, kps2.mask, binary=True,
+            d1, d2, kps1.mask, kps2.mask, binary=binary,
             ratio_test=match_cfg.ratio_test, ratio=match_cfg.ratio,
             cross_check=cross,
         )
@@ -130,7 +132,7 @@ def get_correspondences(
                 )
             if match_cfg.sof_autoth:
                 vth = filters.autoth_validation_th(
-                    matching.estimate_inlier_ratio_from_ratios(res), True
+                    matching.estimate_inlier_ratio_from_ratios(res), binary
                 )
             else:
                 vth = match_cfg.sof_validation_th
@@ -147,13 +149,18 @@ def get_correspondences(
             pred = torch.where(use_knn[:, None], predk, pred)
             rad = torch.where(use_knn, radk, rad)
             res = matching.match_descriptors(
-                d1, d2, kps1.mask, kps2.mask, binary=True,
+                d1, d2, kps1.mask, kps2.mask, binary=binary,
                 ratio_test=match_cfg.ratio_test, ratio=match_cfg.ratio,
                 cross_check=cross, guide_pred=pred, guide_rad=rad,
                 pts2_xy=kps2.xy,
             )
             pts2 = kps2.xy[res.idx.long()]
             mask = res.mask
+        if match_cfg.gms_filter:
+            mask = filters.gms_filter(
+                pts1, pts2, mask, shape, shape, grid=match_cfg.gms_grid,
+                alpha=match_cfg.gms_threshold_factor,
+            )
         # PROSAC quality: inverse distance ratio
         ratio_q = res.distance / torch.clamp(res.second_distance, min=1e-9)
         quality = torch.where(mask, 1.0 - ratio_q, 0.0)

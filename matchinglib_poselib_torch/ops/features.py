@@ -1,16 +1,21 @@
-"""Feature front end, FAST/ORB path (port of ``ops/features.py``).
+"""Feature front end (port of ``ops/features.py``): the FAST/ORB path
+and the SIFT and SURF rows.
 
 FAST-9/16 segment-test scores with window-max NMS, column-band keypoint
 selection with quadratic subpixel refinement, intensity-centroid
-orientation, and steered BRIEF-256 with ORB-style discretized rotations.
-Everything is fixed-shape: exactly ``max_keypoints`` slots per image with a
-validity mask; images are (H, W) float32 grayscale in [0, 1].
+orientation, steered BRIEF-256 with ORB-style discretized rotations, and
+the SIFT gradient-histogram float descriptor. SIFT and SURF detection live
+in ``ops/scale_space.py``, the M-SURF descriptor in
+``ops/nonlinear_diffusion.py``. Everything is fixed-shape: exactly
+``max_keypoints`` slots per image with a validity mask; images are (H, W)
+float32 grayscale in [0, 1].
 
 On a CUDA tensor ``detect_keypoints`` runs the fused FAST+NMS kernel
 (``ops/kernels/fast_nms.py``) where the JAX package runs its Pallas kernel;
 on a CPU tensor it runs ``nms(fast_score(.))``, the kernel's plain version.
 Binary descriptors are (K, 8) int32 words holding the same bit patterns as
-the JAX package's (K, 8) uint32 words.
+the JAX package's (K, 8) uint32 words; float descriptors are (K, 128) or
+(K, 64) float32.
 """
 
 from __future__ import annotations
@@ -384,16 +389,133 @@ def brief_descriptor_orb(
 
 
 # ---------------------------------------------------------------------------
+# SIFT-like float descriptor
+# ---------------------------------------------------------------------------
+
+
+def sift_descriptor(patches: torch.Tensor, angles: torch.Tensor,
+                    oriented: bool = True) -> torch.Tensor:
+    """4x4 x 8-bin gradient-orientation histogram -> (K, 128) float32.
+
+    Gradients are rotated into the keypoint frame; spatial bins use hard
+    assignment (truncation toward zero, as ``astype(int32)``) with Gaussian
+    radial weighting; the result is L2-normalized, clamped at 0.2 and
+    renormalized (Lowe's scheme). The histogram is a scatter-add in a
+    fixed order where the JAX package contracts a one-hot tensor.
+    """
+    K, P, _ = patches.shape
+    dev = patches.device
+    if not oriented:
+        angles = torch.zeros_like(angles)
+    gx = 0.5 * (torch.roll(patches, -1, 2) - torch.roll(patches, 1, 2))
+    gy = 0.5 * (torch.roll(patches, -1, 1) - torch.roll(patches, 1, 1))
+    mag = torch.sqrt(gx * gx + gy * gy)
+    ori = torch.atan2(gy, gx) - angles[:, None, None]
+
+    c = (P - 1) / 2.0
+    ys = (torch.arange(P, dtype=torch.float32, device=dev) - c) / c
+    yy, xx = torch.meshgrid(ys, ys, indexing="ij")
+    ca = torch.cos(-angles)[:, None, None]
+    sa = torch.sin(-angles)[:, None, None]
+    xr = ca * xx[None] - sa * yy[None]
+    yr = sa * xx[None] + ca * yy[None]
+    w_gauss = torch.exp(-(xx**2 + yy**2) / (2 * 0.6**2))[None]
+
+    bx = torch.clamp(((xr + 1.0) * 2.0).to(torch.int32), 0, 3)
+    by = torch.clamp(((yr + 1.0) * 2.0).to(torch.int32), 0, 3)
+    two_pi = 2.0 * math.pi
+    ob = torch.clamp(
+        (floor_mod(ori, two_pi) / two_pi * 8.0).to(torch.int32), 0, 7)
+    bin_idx = (by * 4 + bx) * 8 + ob
+    desc = scatter_rows(bin_idx.reshape(K, -1), (mag * w_gauss).reshape(
+        K, -1, 1), 128).reshape(K, 128)
+    desc = desc / torch.clamp(
+        torch.linalg.norm(desc, dim=-1, keepdim=True), min=1e-9)
+    desc = torch.clamp(desc, max=0.2)
+    return desc / torch.clamp(
+        torch.linalg.norm(desc, dim=-1, keepdim=True), min=1e-9)
+
+
+def scatter_rows(bins: torch.Tensor, vals: torch.Tensor, n_bins: int):
+    """Per-row histogram: out[k, b] = sum of vals[k, p] over p with
+    bins[k, p] == b. bins (K, P) int, vals (K, P, F) -> (K, n_bins, F).
+
+    ``index_put_`` with accumulation adds in element order on the CPU and
+    (sorting the indices stably) on the card, so both take the same sums.
+    """
+    K, P, Fd = vals.shape
+    flat = (torch.arange(K, device=bins.device)[:, None] * n_bins
+            + bins.to(torch.int64)).reshape(-1)
+    out = torch.zeros((K * n_bins, Fd), dtype=vals.dtype, device=vals.device)
+    out.index_put_((flat,), vals.reshape(K * P, Fd), accumulate=True)
+    return out.reshape(K, n_bins, Fd)
+
+
+# ---------------------------------------------------------------------------
 # top-level detect + describe
 # ---------------------------------------------------------------------------
 
+# registry aliases: reference detector names -> implemented families
+# (features.cpp:792-847; README.md:47-66)
+DETECTOR_ALIASES = {
+    "FAST": "FAST", "ORB": "ORB", "HARRIS": "HARRIS", "GFTT": "SHITOMASI",
+    "SHITOMASI": "SHITOMASI", "BRISK": "BRISK", "AKAZE": "AKAZE",
+    "KAZE": "KAZE", "SIFT": "SIFT", "SURF": "SURF",
+    "STAR": "STAR", "MSD": "MSD", "MSER": "MSER",
+}
+
+DESCRIPTOR_ALIASES = {
+    # steered-BRIEF family
+    "ORB": "BRIEF",
+    "LATCH": "LATCH",
+    # AKAZE MLDB / KAZE M-SURF (nonlinear_diffusion module)
+    "AKAZE": "MLDB", "KAZE_BIN": "MLDB", "KAZE": "MSURF",
+    # BoostDesc family
+    "BGM": "BGM", "BGM_HARD": "BGM", "BGM_BILINEAR": "BGM",
+    "LBGM": "LBGM",
+    "BINBOOST_64": "BINBOOST_64", "BINBOOST_128": "BINBOOST_128",
+    "BINBOOST_256": "BINBOOST_256",
+    # ring-pattern family
+    "BRISK": "RING", "FREAK": "RING_LOG",
+    # BOLD: per-patch stability masks + masked-Hamming matching
+    "BOLD": "BOLD",
+    # float family
+    "SIFT": "SIFT", "SURF": "SURF64", "DAISY": "DAISY",
+    "VGG_120": "VGG_120", "VGG_80": "VGG_80", "VGG_64": "VGG_64",
+    "VGG_48": "VGG_48",
+    "RIFF": "RIFF",
+}
+
+# LBGM is the float member of the BoostDesc family; all others here are
+# Hamming
+_BINARY_KINDS = (
+    "BRIEF", "RING", "RING_LOG", "BOLD", "MLDB", "LATCH", "BGM",
+    "BINBOOST_64", "BINBOOST_128", "BINBOOST_256",
+)
+
+_SCALE_SPACE_KINDS = ("SIFT", "SURF", "STAR", "MSD", "MSER", "KAZE", "AKAZE")
 _FAST_KINDS = ("FAST", "ORB", "BRISK")
+# descriptor families the port computes (others raise)
+_PORTED_DESCRIPTORS = ("BRIEF", "SIFT", "SURF64", "MSURF")
+
+
+def is_binary_descriptor(name: str) -> bool:
+    kind = DESCRIPTOR_ALIASES.get(name.upper(), "BRIEF")
+    return kind in _BINARY_KINDS
+
+
+def is_bold_descriptor(name: str) -> bool:
+    return DESCRIPTOR_ALIASES.get(name.upper(), "BRIEF") == "BOLD"
 
 
 def detector_bands(cfg: DetectorConfig) -> int:
-    """Band count of cfg's keypoint layout, or 0 when not banded."""
+    """Band count of cfg's keypoint layout, or 0 when not banded (the
+    scale-space detectors never band)."""
+    kind = DETECTOR_ALIASES.get(cfg.kind.upper(), "FAST")
+    scale_space = kind in _SCALE_SPACE_KINDS or (
+        kind in ("ORB", "BRISK") and cfg.pyramid_levels > 1)
     if (
-        cfg.pyramid_levels > 1
+        scale_space
         or cfg.column_bands <= 0
         or cfg.max_keypoints % cfg.column_bands != 0
     ):
@@ -403,17 +525,25 @@ def detector_bands(cfg: DetectorConfig) -> int:
 
 def detect_keypoints(img: torch.Tensor, cfg: DetectorConfig) -> Keypoints:
     """getKeypoints equivalent (features.cpp:145): FAST score -> NMS ->
-    banded (or grid) top-k -> subpixel refinement.
+    banded (or grid) top-k -> subpixel refinement; SIFT and SURF dispatch
+    to ``ops/scale_space.py``.
 
-    Single-scale FAST/ORB/BRISK rows only; every other detector of the JAX
-    package is not ported yet and raises.
+    Ported rows: single-scale FAST/ORB/BRISK, SIFT, SURF. Every other
+    detector of the JAX package is not ported yet and raises.
     """
     from matchinglib_poselib_torch.ops.kernels import fast_nms
 
-    if cfg.kind.upper() not in _FAST_KINDS or cfg.pyramid_levels > 1:
+    kind = DETECTOR_ALIASES.get(cfg.kind.upper(), "FAST")
+    if kind in ("SIFT", "SURF"):
+        from matchinglib_poselib_torch.ops import scale_space
+
+        fn = (scale_space.sift_dog_keypoints if kind == "SIFT"
+              else scale_space.surf_hessian_keypoints)
+        return fn(img, cfg.max_keypoints, grid_cells=cfg.grid_cells)
+    if kind not in _FAST_KINDS or cfg.pyramid_levels > 1:
         raise NotImplementedError(
             f"detector {cfg.kind!r} (pyramid_levels={cfg.pyramid_levels}) "
-            "is not ported; single-scale FAST/ORB/BRISK only"
+            "is not ported; single-scale FAST/ORB/BRISK, SIFT and SURF only"
         )
     score = fast_nms.fast_nms_score(
         img[None], cfg.fast_threshold / 255.0, cfg.nms_radius
@@ -465,19 +595,33 @@ def compute_descriptors(
     img: torch.Tensor, kps: Keypoints, cfg: DescriptorConfig,
     bands: int = 0, tables: DescriptorTables | None = None,
 ) -> tuple[torch.Tensor, Keypoints]:
-    """getDescriptors equivalent (features.cpp:397), ORB rows only.
+    """getDescriptors equivalent (features.cpp:397): the steered-BRIEF
+    (ORB), SIFT and M-SURF (SURF, KAZE) rows.
 
-    Returns ((K, 8) int32 descriptors, keypoints with orientation).
+    Returns (descriptors, keypoints with orientation): (K, 8) int32 words
+    for ORB, (K, 128) float32 for SIFT, (K, 64) float32 for M-SURF. Every
+    other descriptor of the JAX package is not ported yet and raises.
     """
-    if cfg.kind.upper() != "ORB":
+    kind = DESCRIPTOR_ALIASES.get(cfg.kind.upper(), "BRIEF")
+    if kind not in _PORTED_DESCRIPTORS:
         raise NotImplementedError(
-            f"descriptor {cfg.kind!r} is not ported; ORB only"
+            f"descriptor {cfg.kind!r} is not ported; ORB, SIFT and "
+            "SURF/KAZE (M-SURF) only"
         )
-    if tables is None:
-        tables = default_descriptor_tables(img.device)
     patches = extract_patches(img, kps.xy, cfg.patch_size, bands=bands)
     angles = orientation_ic(patches) if cfg.oriented else torch.zeros(
         patches.shape[0], dtype=img.dtype, device=img.device
     )
-    desc = brief_descriptor_orb(patches, angles, tables.orb_idx, cfg.oriented)
+    if kind == "BRIEF":
+        if tables is None:
+            tables = default_descriptor_tables(img.device)
+        desc = brief_descriptor_orb(patches, angles, tables.orb_idx,
+                                    cfg.oriented)
+    elif kind == "SIFT":
+        desc = sift_descriptor(patches, angles, cfg.oriented)
+    else:
+        from matchinglib_poselib_torch.ops import nonlinear_diffusion
+
+        desc = nonlinear_diffusion.msurf_descriptor(patches, angles,
+                                                    cfg.oriented)
     return desc, kps._replace(angle=angles)

@@ -1,6 +1,10 @@
-"""GMBSOF statistical-flow filters (port of ``ops/filters.py``, SOF subset).
+"""Correspondence filters (port of ``ops/filters.py``): GMS grid voting
+and the GMBSOF statistical-flow subset.
 
-The SOF (Statistical Optical Flow) field of GMbSOF
+GMS (Grid-based Motion Statistics, gms.cpp:54-84): matches scatter-added
+into a (G^2, G^2) cell-pair histogram, each pair scored by its 9 aligned
+neighbour cells and thresholded at alpha * sqrt(mean support), over 4
+half-cell grid offsets. The SOF (Statistical Optical Flow) field of GMbSOF
 (match_statOptFlow.cpp:2608 getStatisticalMatchingPositions, :2266
 interpolStatOptFlow, :4410 guidedMatching): per-grid-cell robust flow
 statistics with dual validation, a stats-over-stats band filter, field
@@ -13,6 +17,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from matchinglib_poselib_torch.ops import geometry as geo
@@ -37,6 +42,74 @@ def autoth_validation_th(inlier_ratio, binary: bool) -> torch.Tensor:
         mid = torch.clamp(1.5 * r + 0.075, max=0.75)
         return torch.where(r >= 0.45, 0.75, torch.where(r <= 0.15, 0.3, mid))
     return torch.clamp(r, 0.3, 0.75)
+
+
+# ---------------------------------------------------------------------------
+# GMS
+# ---------------------------------------------------------------------------
+
+# the 4 half-cell grid shifts of GMS
+GMS_OFFSETS = ((0.0, 0.0), (0.5, 0.0), (0.0, 0.5), (0.5, 0.5))
+
+
+def gms_filter(pts1: torch.Tensor, pts2: torch.Tensor, mask: torch.Tensor,
+               shape1: tuple[int, int], shape2: tuple[int, int],
+               grid: int = 20, alpha: float = 6.0) -> torch.Tensor:
+    """Grid-based motion statistics inlier mask.
+
+    pts1, pts2: (N, 2) pixel coords of matched pairs; mask: (N,) validity;
+    shape = (height, width). Returns the refined (N,) bool mask. The cell
+    counts are sums of 0/1 (``index_put_`` with accumulation), exact in
+    any order.
+    """
+    keep = torch.zeros_like(mask, dtype=torch.bool)
+    for ox, oy in GMS_OFFSETS:
+        keep = keep | gms_offset_accept(pts1, pts2, mask, shape1, shape2,
+                                        grid, alpha, ox, oy)
+    return keep & mask.to(torch.bool)
+
+
+def gms_offset_accept(pts1, pts2, mask, shape1, shape2, grid: int,
+                      alpha: float, ox: float, oy: float) -> torch.Tensor:
+    """GMS acceptance of every match on the grid shifted by (ox, oy) cells
+    (masked matches are counted as absent but still looked up)."""
+    h1, w1 = shape1
+    h2, w2 = shape2
+    dims = (0, 1, 2, 3)
+
+    def coord(v, size, off):
+        # v / size * grid + off as the JAX package's compiled filter
+        # evaluates it: XLA folds the division into a product with the f32
+        # constant f32(1 / size) * grid and contracts the add into an FMA;
+        # the float64 product of two f32 values is exact
+        c = float(np.float32(np.float32(1.0) / np.float32(size))
+                  * np.float32(grid))
+        q = (v.to(torch.float64) * c + off).to(torch.float32)
+        return torch.clamp(q.to(torch.int64), 0, grid - 1)
+
+    def cell(p, w, h, off_x, off_y):
+        return coord(p[:, 1], h, off_y) * grid + coord(p[:, 0], w, off_x)
+
+    cell1 = cell(pts1, w1, h1, ox, oy)
+    cell2 = cell(pts2, w2, h2, ox, oy)
+    counts = torch.zeros((grid * grid, grid * grid), dtype=torch.float32,
+                         device=pts1.device)
+    counts.index_put_((cell1, cell2), mask.to(torch.float32),
+                      accumulate=True)
+    c4 = counts.reshape(grid, grid, grid, grid)
+    occ = (c4 > 0).to(torch.float32)
+    # score(a, b) = sum over the 9 aligned neighbour shifts
+    score4 = torch.zeros_like(c4)
+    support4 = torch.zeros_like(c4)  # contributing cell pairs
+    for di in (-1, 0, 1):
+        for dj in (-1, 0, 1):
+            sh = (di, dj, di, dj)
+            score4 = score4 + torch.roll(c4, shifts=sh, dims=dims)
+            support4 = support4 + torch.roll(occ, shifts=sh, dims=dims)
+    # GMS threshold: alpha * sqrt(mean matches per contributing cell)
+    mean_per_cell = score4 / torch.clamp(support4, min=1.0)
+    accept4 = score4 > alpha * torch.sqrt(mean_per_cell)
+    return accept4.reshape(grid * grid, grid * grid)[cell1, cell2]
 
 
 # ---------------------------------------------------------------------------

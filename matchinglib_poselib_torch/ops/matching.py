@@ -1,11 +1,11 @@
-"""Exact binary descriptor matching (port of ``ops/matching.py``).
+"""Exact descriptor matching (port of ``ops/matching.py``).
 
 2-NN search with the Lowe ratio test, the low-texture ratio fallback, an
-optional mutual cross-check and the GMbSOF radius gate. The search is the
-fused 2-NN kernel (``ops/kernels/knn2.py``): on CUDA tensors the hand-written
-CUDA kernel, on CPU tensors its plain version — the JAX package's Pallas
-(knn2) branch of ``match_descriptors``. Float descriptors need the general
-2-NN kernel, which is not ported yet.
+optional mutual cross-check and the GMbSOF radius gate. The search is a
+fused 2-NN kernel (``ops/kernels/knn2.py``): Hamming for binary words
+(``knn2``), squared L2 for float descriptors (``knn2_l2``); on CUDA
+tensors the hand-written CUDA kernels, on CPU tensors their plain versions
+— the JAX package's Pallas (knn2) branch of ``match_descriptors``.
 """
 
 from __future__ import annotations
@@ -102,21 +102,24 @@ def match_descriptors(
 ) -> MatchResult:
     """Exact 2-NN matching with ratio test and optional mutual cross-check.
 
-    desc1: (N1, 8), desc2: (N2, 8) int32 words; valid1/valid2 mask padded
-    slots. Guided matching (GMbSOF guidedMatching,
+    desc1: (N1, 8), desc2: (N2, 8) int32 words (binary) or (N1, D), (N2, D)
+    float descriptors (binary=False, squared L2 distances); valid1/valid2
+    mask padded slots. Guided matching (GMbSOF guidedMatching,
     match_statOptFlow.cpp:4410): pass guide_pred (N1, 2), guide_rad (N1,)
     and pts2_xy (N2, 2) to restrict query i's candidates to a circle
     around its predicted position.
     """
-    if not binary:
-        raise NotImplementedError(
-            "float descriptors need the general 2-NN kernel, not ported yet"
-        )
     guided = guide_pred is not None
     v1 = valid1.to(torch.bool)
     v2 = valid2.to(torch.bool)
     rad2 = guide_rad * guide_rad if guided else None
-    d_best, d_second, idx = _knn2.knn2(
+    if binary:
+        search = _knn2.knn2
+    else:
+        search = _knn2.knn2_l2
+        desc1 = desc1.to(torch.float32).contiguous()
+        desc2 = desc2.to(torch.float32).contiguous()
+    d_best, d_second, idx = search(
         desc1, desc2, v2, guide_pred, rad2, pts2_xy,
         xy_mode=1 if guided else 0,
     )
@@ -126,7 +129,7 @@ def match_descriptors(
         keep = keep & (d_best <= max_distance)
     if cross_check:
         # backward top-1 under the mirrored gate
-        _, _, back = _knn2.knn2(
+        _, _, back = search(
             desc2, desc1, v1, pts2_xy, rad2, guide_pred,
             xy_mode=2 if guided else 0,
         )

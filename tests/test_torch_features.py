@@ -1,11 +1,16 @@
-"""FAST+NMS, keypoint selection and ORB descriptors: port vs JAX package.
+"""FAST+NMS, keypoint selection, ORB, SIFT and M-SURF descriptors: port vs
+JAX package.
 
 Tolerances: FAST scores and NMS are exact (atol 0: same f32 operations in
 the same order); keypoint score and mask exact slot for slot, xy within
 1e-5 (subpixel offsets are f32 quotients); descriptors >= 99.5% of valid
 slots bit-identical, and every slot that differs must sit within 1e-4 rad
 of an ORB angle-bin edge (orientation moments are f32 sums taken in
-another order, which can move a keypoint across a bin edge).
+another order, which can move a keypoint across a bin edge). Float
+descriptors (SIFT, M-SURF) within atol 1e-5 on >= 99% of rows: a gradient
+on an orientation- or cell-bin edge can move one pixel's vote to the
+neighbouring bin, because atan2, sin and cos round differently in the two
+packages (bins truncate toward zero in both, as ``astype(int32)``).
 """
 
 import math
@@ -140,13 +145,93 @@ def test_pack_bits_matches_uint32_words():
 
 
 def test_unported_detector_raises():
-    with pytest.raises(NotImplementedError):
-        tfeat.detect_keypoints(torch.zeros(64, 64),
-                               tcfg.DetectorConfig(kind="HARRIS"))
+    for kind in ("HARRIS", "STAR"):
+        with pytest.raises(NotImplementedError):
+            tfeat.detect_keypoints(torch.zeros(64, 64),
+                                   tcfg.DetectorConfig(kind=kind))
     with pytest.raises(NotImplementedError):
         tfeat.compute_descriptors(
             torch.zeros(64, 64),
             tfeat.Keypoints(*(torch.zeros(4, 2),) + (torch.zeros(4),) * 3
                             + (torch.zeros(4, dtype=torch.bool),)),
-            tcfg.DescriptorConfig(kind="SIFT"),
+            tcfg.DescriptorConfig(kind="DAISY"),
         )
+
+
+def _jax_patches(seed, k=200):
+    """Patches and intensity-centroid angles of the JAX package at random
+    positions of a textured image."""
+    rng = np.random.default_rng(seed)
+    img = textured_image(rng, 240, 320)
+    xy = np.stack([rng.uniform(16, 304, k), rng.uniform(16, 224, k)],
+                  axis=1).astype(np.float32)
+    patches = jfeat.extract_patches(jnp.asarray(img), jnp.asarray(xy), 31)
+    return patches, jfeat.orientation_ic(patches)
+
+
+@pytest.mark.parametrize("kind,oriented", [
+    ("sift", True), ("msurf", True), ("msurf", False)])
+def test_float_descriptors_match_jax(kind, oriented):
+    """Unoriented SIFT is left out: on this blocky texture most gradients
+    are axis-aligned, XLA's atan2 rounds the exact quadrant angles one ulp
+    apart from torch's, and (angle mod 2 pi) / 2 pi * 8 then lands on
+    1.9999999 instead of 2.0, so whole rows vote in a neighbouring bin
+    (ROADMAP C)."""
+    from matchinglib_poselib_tpu.ops import nonlinear_diffusion as jnd
+    from matchinglib_poselib_torch.ops import nonlinear_diffusion as tnd
+
+    patches, angles = _jax_patches(13)
+    jfn, tfn, dim = {
+        "sift": (jfeat.sift_descriptor, tfeat.sift_descriptor, 128),
+        "msurf": (jnd.msurf_descriptor, tnd.msurf_descriptor, 64),
+    }[kind]
+    ref = np.asarray(jfn(patches, angles, oriented))
+    out = tfn(t(patches), t(angles), oriented)
+    assert out.dtype == torch.float32 and out.shape == (200, dim)
+    rows = np.abs(n(out) - ref).max(axis=1) <= 1e-5
+    assert rows.mean() >= 0.99, f"{(~rows).sum()} rows off"
+    np.testing.assert_allclose(np.linalg.norm(n(out), axis=1), 1.0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("det_kind,desc_kind,dim", [
+    ("SIFT", "SIFT", 128), ("SURF", "SURF", 64), ("SIFT", "KAZE", 64)])
+def test_float_detect_and_describe_dispatch(det_kind, desc_kind, dim):
+    """detect_keypoints dispatches SIFT/SURF to scale_space (no bands) and
+    compute_descriptors returns the JAX package's float descriptors for
+    the same keypoints."""
+    from matchinglib_poselib_torch.ops import scale_space as tss
+
+    img = textured_image(np.random.default_rng(8), 160, 224)
+    det = tcfg.DetectorConfig(kind=det_kind, max_keypoints=128)
+    kps = tfeat.detect_keypoints(t(img), det)
+    fn = (tss.sift_dog_keypoints if det_kind == "SIFT"
+          else tss.surf_hessian_keypoints)
+    direct = fn(t(img), 128)
+    for a, b in zip(kps, direct):
+        assert torch.equal(a, b)
+    assert tfeat.detector_bands(det) == 0 == jfeat.detector_bands(
+        jcfg.DetectorConfig(kind=det_kind, max_keypoints=128))
+    jk = jfeat.detect_keypoints(jnp.asarray(img), jcfg.DetectorConfig(
+        kind=det_kind, max_keypoints=128))
+    jd, jk = jfeat.compute_descriptors(
+        jnp.asarray(img), jk, jcfg.DescriptorConfig(kind=desc_kind))
+    td, tk = tfeat.compute_descriptors(
+        t(img), tfeat.Keypoints(*(t(x) for x in jk[:4]),
+                                t(jk.mask, torch.bool)),
+        tcfg.DescriptorConfig(kind=desc_kind))
+    assert td.dtype == torch.float32 and td.shape == (128, dim)
+    np.testing.assert_allclose(n(tk.angle), np.asarray(jk.angle), atol=1e-5)
+    rows = np.abs(n(td) - np.asarray(jd)).max(axis=1) <= 1e-5
+    assert rows[np.asarray(jk.mask)].mean() >= 0.99
+
+
+def test_descriptor_registry_matches_jax():
+    assert tfeat.DETECTOR_ALIASES == jfeat.DETECTOR_ALIASES
+    assert tfeat.DESCRIPTOR_ALIASES == jfeat.DESCRIPTOR_ALIASES
+    assert tfeat._BINARY_KINDS == jfeat._BINARY_KINDS
+    for name in list(jfeat.DESCRIPTOR_ALIASES) + ["unknown"]:
+        assert tfeat.is_binary_descriptor(name) == \
+            jfeat.is_binary_descriptor(name)
+        assert tfeat.is_bold_descriptor(name) == \
+            jfeat.is_bold_descriptor(name)

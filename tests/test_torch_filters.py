@@ -1,9 +1,11 @@
-"""GMBSOF statistical-flow filters: port vs JAX package.
+"""GMS and GMBSOF statistical-flow filters: port vs JAX package.
 
-Tolerances: sof_statistics, sof_predict and sof_predict_knn within atol
-1e-4 (per-cell means and standard deviations are f32 segment sums taken in
-another order; medians and validity are order-free); sof_cell_valid_at
-and select_strongest_per_cell exact.
+Tolerances: gms_filter bit-exact (cell counts are sums of 0/1; the cell
+coordinates follow the JAX package's compiled arithmetic); sof_statistics,
+sof_predict and sof_predict_knn within atol 1e-4 (per-cell means and
+standard deviations are f32 segment sums taken in another order; medians
+and validity are order-free); sof_cell_valid_at and
+select_strongest_per_cell exact.
 """
 
 import numpy as np
@@ -114,3 +116,51 @@ def test_select_strongest_per_cell_exact():
         per_cell=16)
     np.testing.assert_array_equal(n(out), np.asarray(ref))
     assert 0 < n(out).sum() < m.sum()
+
+
+def _gms_matches(seed, n_pts=600):
+    """Clusters of consistent motion (stereo-like shift, per-cluster
+    jitter) at random places, plus random outliers, ~8% masked."""
+    rng = np.random.default_rng(seed)
+    centers = np.stack([rng.uniform(0, SHAPE[1], 40),
+                        rng.uniform(0, SHAPE[0], 40)], 1)
+    which = rng.integers(0, 40, n_pts)
+    p1 = centers[which] + rng.normal(scale=9.0, size=(n_pts, 2))
+    p2 = p1 + np.array([-14.0, 1.0]) + rng.normal(scale=1.5, size=(n_pts, 2))
+    out = rng.random(n_pts) < 0.25
+    p2[out] = np.stack([rng.uniform(0, SHAPE[1], out.sum()),
+                        rng.uniform(0, SHAPE[0], out.sum())], 1)
+    p1 = np.clip(p1, 0, [SHAPE[1] - 1, SHAPE[0] - 1])
+    p2 = np.clip(p2, 0, [SHAPE[1] - 1, SHAPE[0] - 1])
+    mask = rng.random(n_pts) > 0.08
+    return p1.astype(np.float32), p2.astype(np.float32), mask
+
+
+@pytest.mark.parametrize("grid", [20, 12])
+def test_gms_filter_bit_exact(grid):
+    p1, p2, m = _gms_matches(3 + grid)
+    ref = np.asarray(jf.gms_filter(jnp.asarray(p1), jnp.asarray(p2),
+                                   jnp.asarray(m), SHAPE, SHAPE, grid=grid))
+    out = n(tf.gms_filter(t(p1), t(p2), torch.from_numpy(m), SHAPE, SHAPE,
+                          grid=grid))
+    np.testing.assert_array_equal(out, ref)
+    assert 30 < ref.sum() < m.sum()
+
+
+def test_gms_filter_every_offset_matters():
+    """A set where each of the 4 half-cell grids accepts a match that no
+    other grid accepts, so dropping any offset would change the result;
+    the port still equals the JAX package bit for bit."""
+    p1, p2, m = _gms_matches(5, n_pts=900)
+    acc = [n(tf.gms_offset_accept(t(p1), t(p2), torch.from_numpy(m), SHAPE,
+                                  SHAPE, 20, 6.0, ox, oy)) & m
+           for ox, oy in tf.GMS_OFFSETS]
+    for i, a in enumerate(acc):
+        others = np.any([b for j, b in enumerate(acc) if j != i], axis=0)
+        assert (a & ~others).any(), f"offset {tf.GMS_OFFSETS[i]} adds none"
+    ref = np.asarray(jf.gms_filter(jnp.asarray(p1), jnp.asarray(p2),
+                                   jnp.asarray(m), SHAPE, SHAPE))
+    np.testing.assert_array_equal(
+        n(tf.gms_filter(t(p1), t(p2), torch.from_numpy(m), SHAPE, SHAPE)),
+        ref)
+    np.testing.assert_array_equal(ref, np.any(acc, axis=0))

@@ -82,3 +82,28 @@ def textured_image(rng, h=240, w=320):
             + np.roll(img, 1, 1) + np.roll(img, -1, 1)
         )
     return (img - img.min()) / (img.max() - img.min())
+
+
+def align_slots(jxy, jmask, txy, tmask, tol=1e-4):
+    """For every JAX keypoint slot, the port slot holding the keypoint at
+    the same position (max-norm distance <= tol), or -1 (also for masked
+    JAX slots). Scale-space detectors can find an extremum on an f32 near
+    tie on one side only, which shifts every later slot; aligning by
+    position compares the rest slot for slot again."""
+    jxy = np.asarray(jxy, np.float64)
+    txy = np.asarray(txy, np.float64)
+    d = np.abs(jxy[:, None, :] - txy[None, :, :]).max(-1)
+    d[~np.asarray(jmask, bool)] = np.inf
+    d[:, ~np.asarray(tmask, bool)] = np.inf
+    best = d.argmin(1)
+    ok = d[np.arange(len(best)), best] <= tol
+    return np.where(ok, best, -1)
+
+
+def aligned_fraction(perm, jmask, tmask):
+    """Share of the keypoints valid on either side that the other side
+    holds at the same position, and the number that it misses."""
+    jmask, tmask = np.asarray(jmask, bool), np.asarray(tmask, bool)
+    both = int((perm >= 0).sum())
+    union = int(jmask.sum() + tmask.sum()) - both
+    return both / max(union, 1), union - both

@@ -20,7 +20,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_port_runs_without_importing_jax():
     """A fresh interpreter imports the port and chip_smoke, runs the plain
-    pipeline, and never imports jax."""
+    pipeline at the FAST/ORB and the SIFT/SIFT + GMS configs, and never
+    imports jax."""
     code = textwrap.dedent("""
         import sys
         import numpy as np, torch
@@ -39,6 +40,17 @@ def test_port_runs_without_importing_jax():
                               torch.zeros(5), torch.zeros(5),
                               torch.Generator().manual_seed(0))
         assert pose.R.shape == (3, 3) and bool(torch.isfinite(pose.R).all())
+        pipe = pipeline.StereoPipeline(
+            c.DetectorConfig(kind="SIFT", max_keypoints=64),
+            c.DescriptorConfig(kind="SIFT"),
+            c.MatchingConfig(gms_filter=True),
+            c.PoseConfig(robust=c.RobustConfig(batch_hypotheses=8,
+                                               max_batches=2)),
+            device="cpu")
+        corr, pose = pipe.run(img1, img2, K, K, np.zeros(5), np.zeros(5),
+                              torch.Generator().manual_seed(0))
+        assert corr.kps1.xy.shape == (64, 2)
+        assert bool(torch.isfinite(pose.R).all())
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m.startswith("matchinglib_poselib_tpu")]
         assert not bad, bad
@@ -65,7 +77,13 @@ def test_cpu_tensors_take_the_plain_versions():
     valid = torch.ones(50, dtype=torch.bool)
     for a, b in zip(knn2.knn2(d1, d2, valid), knn2.knn2_plain(d1, d2, valid)):
         assert torch.equal(a, b)
-    assert kernels.launch_counts() == {"fast_nms": 0, "knn2": 0}
+    f1 = torch.from_numpy(rng.normal(size=(40, 64)).astype(np.float32))
+    f2 = torch.from_numpy(rng.normal(size=(50, 64)).astype(np.float32))
+    for a, b in zip(knn2.knn2_l2(f1, f2, valid),
+                    knn2.knn2_l2_plain(f1, f2, valid)):
+        assert torch.equal(a, b)
+    assert kernels.launch_counts() == {"fast_nms": 0, "knn2": 0,
+                                       "knn2_l2": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
@@ -75,6 +93,20 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                   torch.ones(4, dtype=torch.bool), xy_mode=3)
     with pytest.raises(ValueError):
         fast_nms.fast_nms_score(torch.zeros(2, 8, 8, device="meta"), 0.1, 3)
+    f = torch.zeros(6, 16)
+    ok = torch.ones(6, dtype=torch.bool)
+    for bad in (
+        dict(desc1=f.double()),  # f64
+        dict(desc2=torch.zeros(16, 6).T),  # not contiguous
+        dict(xy_mode=3),
+        dict(desc2=torch.zeros(6, 15)),  # depth mismatch
+        dict(xy_mode=1),  # gate inputs missing
+    ):
+        kw = dict(desc1=f, desc2=f, valid2=ok) | bad
+        with pytest.raises(ValueError):
+            knn2.knn2_l2(**kw)
+    with pytest.raises(ValueError):
+        knn2.knn2_l2(f.to("meta"), f.to("meta"), ok.to("meta"))
 
 
 @pytest.mark.gpu
@@ -105,3 +137,22 @@ def test_kernels_equal_plain_on_the_card():
         want = knn2.knn2_plain(*args, xy_mode=mode)
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w)
+    # float 2-NN (K2b): the tolerance of tests/test_torch_matching.py
+    for depth in (128, 67):
+        f1 = torch.from_numpy(rng.normal(size=(n1, depth)).astype(np.float32))
+        f2 = torch.from_numpy(rng.normal(size=(n2, depth)).astype(np.float32))
+        f1 = f1 / f1.norm(dim=1, keepdim=True)
+        f2 = f2 / f2.norm(dim=1, keepdim=True)
+        f2[17] = f2[11] = f1[5]  # planted duplicates: lowest index wins
+        valid2[17] = valid2[11] = True
+        for mode in (0, 1, 2):
+            rad2 = torch.full((n1 if mode == 1 else n2,), 1e8)
+            args = (f1, f2, valid2) + ((pred, rad2, pts2) if mode else ())
+            gd, gs, gi = (g.cpu() for g in knn2.knn2_l2(
+                *(a.cuda() for a in args), xy_mode=mode))
+            wd, ws, wi = knn2.knn2_l2_plain(*args, xy_mode=mode)
+            assert bool(((gd - wd).abs() <= 1e-5 * (1 + wd.abs())).all())
+            assert bool(((gs - ws).abs() <= 1e-5 * (1 + ws.abs())).all())
+            gap = (ws - wd) > 1e-5
+            assert torch.equal(gi[gap], wi[gap])
+            assert int(gi[5]) == 11 and float(gs[5]) == float(gd[5])

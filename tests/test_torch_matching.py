@@ -1,10 +1,19 @@
-"""Binary 2-NN matching: port vs JAX package (exact).
+"""2-NN matching: port vs JAX package.
 
-The fused 2-NN kernel's plain version must equal the JAX ``knn2`` (Pallas
-kernel in interpret mode) on all three outputs for xy_mode 0, 1 and 2,
-and ``match_descriptors`` must keep the same slots with the same indices
-and distances as the JAX package (atol 0: Hamming distances are integers).
-The set-ups follow tests/test_pallas_knn.py.
+Binary (exact): the fused 2-NN kernel's plain version must equal the JAX
+``knn2`` (Pallas kernel in interpret mode) on all three outputs for
+xy_mode 0, 1 and 2, and ``match_descriptors`` must keep the same slots
+with the same indices and distances as the JAX package (atol 0: Hamming
+distances are integers). The set-ups follow tests/test_pallas_knn.py.
+
+Float (squared L2): ``knn2_l2_plain`` against the Pallas general body in
+interpret mode: |d_port - d_jax| <= 1e-5 (1 + |d_jax|) for d_best and
+d_second (f32 dot products summed in another order); idx equal wherever
+the JAX gap d_second - d_best exceeds 1e-5, and on every planted
+duplicate candidate (lowest index); rows whose every candidate is gated
+or invalid return exactly (1e9, 1e9, -1). ``match_descriptors(binary=
+False)`` against the JAX ``use_pallas=True`` branch: masks >= 99.5% equal
+(a ratio test on an f32 near tie may flip), idx equal wherever both keep.
 """
 
 import numpy as np
@@ -182,3 +191,89 @@ def test_hamming_matrix_and_top2_match_jax():
         np.asarray(jm.l2_distance_matrix(jnp.asarray(f1), jnp.asarray(f2))),
         rtol=1e-5, atol=1e-4)
     assert tm.SUPPORTED_MATCHERS == jm.SUPPORTED_MATCHERS
+
+
+def _unit_rows(rng, n_rows, d):
+    x = rng.normal(size=(n_rows, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def _float_setup(rng, d, n1=150, n2=230, n_gated=10):
+    """Unit float descriptors (SIFT-like scale), set 2 = noisy copies of
+    set 1 + distractors, ~10% invalid columns, two planted duplicate
+    candidates per planted query (valid, on its predicted position), and
+    `n_gated` trailing queries predicted far off."""
+    d1 = _unit_rows(rng, n1, d)
+    d2 = _unit_rows(rng, n2, d)
+    d2[:n1 // 2] = d1[:n1 // 2] + 0.15 * _unit_rows(rng, n1 // 2, d)
+    valid2 = rng.random(n2) > 0.1
+    pred = rng.uniform(0, 200, (n1, 2)).astype(np.float32)
+    pts2 = rng.uniform(0, 200, (n2, 2)).astype(np.float32)
+    pts2[:n1 // 2] = pred[:n1 // 2] + rng.normal(scale=3, size=(n1 // 2, 2))
+    planted = {7: (200, 211), 31: (203, 229)}
+    for q, cols in planted.items():
+        for c in cols:
+            d2[c] = d1[q]
+            valid2[c] = True
+            pts2[c] = pred[q]
+    pred[n1 - n_gated:] = 1e6
+    return d1, d2, valid2, pred, pts2, planted
+
+
+@pytest.mark.parametrize("depth", [128, 64, 67])
+@pytest.mark.parametrize("xy_mode", [0, 1, 2])
+def test_knn2_l2_plain_matches_jax_general_body(xy_mode, depth):
+    rng = np.random.default_rng(100 * depth + xy_mode)
+    d1, d2, valid2, pred, pts2, planted = _float_setup(rng, depth)
+    n1, n2 = d1.shape[0], d2.shape[0]
+    rad2 = (rng.uniform(15, 60, n1 if xy_mode == 1 else n2) ** 2).astype(
+        np.float32)
+    extra = (pred, rad2, pts2) if xy_mode else ()
+    ref = [np.asarray(r) for r in jknn.knn2(
+        *(jnp.asarray(a) for a in (d1, d2, valid2) + extra),
+        binary=False, xy_mode=xy_mode, interpret=True)]
+    out = [n(o) for o in tknn.knn2_l2(
+        *(torch.from_numpy(a) for a in (d1, d2, valid2) + extra),
+        xy_mode=xy_mode)]
+    assert out[2].dtype == np.int32
+    for o, r in zip(out[:2], ref[:2]):
+        assert np.all(np.abs(o - r) <= 1e-5 * (1 + np.abs(r)))
+    gap = ref[1] - ref[0] > 1e-5
+    np.testing.assert_array_equal(out[2][gap], ref[2][gap])
+    for q, cols in planted.items():
+        assert out[2][q] == ref[2][q] == min(cols)
+        assert out[1][q] == out[0][q]
+    if xy_mode:
+        for o, r, want in zip(out, ref, (1e9, 1e9, -1)):
+            assert np.all(o[-10:] == want) and np.all(r[-10:] == want)
+    assert (out[2] >= 0).sum() > 50
+
+
+@pytest.mark.parametrize("cross_check", [False, True])
+@pytest.mark.parametrize("guided", [False, True])
+def test_match_descriptors_float(guided, cross_check):
+    rng = np.random.default_rng(50 + 2 * guided + cross_check)
+    d1, d2, valid2, pred, pts2, _ = _float_setup(rng, 128, n_gated=0)
+    v1 = rng.random(d1.shape[0]) > 0.05
+    rad = rng.uniform(15, 60, d1.shape[0]).astype(np.float32)
+    guide = ((pred, rad, pts2) if guided else (None, None, None))
+    kw = dict(binary=False, cross_check=cross_check)
+    ref = jm.match_descriptors(
+        jnp.asarray(d1), jnp.asarray(d2), jnp.asarray(v1),
+        jnp.asarray(valid2), use_pallas=True,
+        guide_pred=None if not guided else jnp.asarray(pred),
+        guide_rad=None if not guided else jnp.asarray(rad),
+        pts2_xy=None if not guided else jnp.asarray(pts2), **kw)
+    out = tm.match_descriptors(
+        t(d1), t(d2), torch.from_numpy(v1), torch.from_numpy(valid2),
+        guide_pred=None if not guided else t(guide[0]),
+        guide_rad=None if not guided else t(guide[1]),
+        pts2_xy=None if not guided else t(guide[2]), **kw)
+    jmask, tmask = np.asarray(ref.mask), n(out.mask)
+    assert (jmask == tmask).mean() >= 0.995
+    both = jmask & tmask
+    np.testing.assert_array_equal(n(out.idx)[both], np.asarray(ref.idx)[both])
+    np.testing.assert_allclose(n(out.distance)[both],
+                               np.asarray(ref.distance)[both], rtol=1e-5,
+                               atol=1e-5)
+    assert both.sum() > 30
