@@ -53,7 +53,7 @@ TIMED_RUNS = 20
 # accuracy bars against the planted pose (tests/test_pipeline.py:88-89)
 MAX_ROT_DEG, MAX_TANG_DEG = 1.0, 5.0
 MIN_CORR, MIN_INLIERS = 300, 200
-# published H100 SXM peaks (on-chip-measurement guide; CUDA C++
+# published H100 SXM peaks (NVIDIA H100 datasheet; CUDA C++
 # Programming Guide throughput table, compute capability 9.0)
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12

@@ -1,4 +1,4 @@
-"""The slices as a whole: StereoPipeline.run of the port vs the JAX
+"""End to end: StereoPipeline.run of the port vs the JAX
 package on a seeded synthetic scene with a planted pose
 (chip_smoke.render_scene).
 
