@@ -8,9 +8,12 @@ Phases (any failure exits non-zero):
   2. fused FAST+NMS kernel vs its plain version on the scene's images at
      (1, 512, 1392) and (2, 512, 1392): equal away from the border, up to
      f32 ties inside an NMS window;
-  3. fused binary 2-NN kernel vs its plain version at 2048 x 2048 on the
-     scene's ORB descriptors, xy_mode 0, 1 and 2, with ~10% invalid
-     columns and planted ties: bit-exact;
+  3. fused binary 2-NN kernel (tensor-core b1 AND-popc product) vs its
+     plain version at 2048 x 2048 on the scene's ORB descriptors, xy_mode
+     0, 1 and 2, with ~10% invalid columns and planted ties: bit-exact;
+     and at the ragged shapes ``KNN2_RAGGED`` (random words, planted ties,
+     rows whose candidates are all gated or all invalid: exactly (1e9,
+     1e9, -1));
   3b. fused float 2-NN kernel vs its plain version (cuBLAS fp32, TF32
      off) on the scene's SIFT (2048 x 2048 x 128) and M-SURF (x 64)
      descriptors, xy_mode 0, 1 and 2, ~10% invalid columns, planted
@@ -59,6 +62,18 @@ HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
 SM_CLOCK_HZ = 1.98e9  # maximum boost clock
 POPC_PER_CLK_SM = 16
+INT32_PER_CLK_SM = 64  # 32-bit integer add, multiply-add, min / max, LOP;
+#                        fp32 compare
+FP32_PER_CLK_SM = 128  # fp32 add, multiply
+# No peak is published for the b1 tensor-core product: the rate that
+# chip_probes/mma_probe.py measures on an H100, 0.60 m16n8k256 BMMA per
+# clock per SM, each 2 x 16 x 8 x 256 ops
+BMMA_OPS_PER_CLK_SM = 0.60 * 2 * 16 * 8 * 256
+# K2a's epilogue per pair, unguided and guided: one IMAD builds the key,
+# three min / max update the top-2; the gate of xy_mode 1 and 2 adds
+# FSETP and a LOP (integer rate) and 2 FADD, 2 FMUL, FADD (fp32 rate)
+KNN2_INT_OPS = (4, 6)
+KNN2_FP32_OPS = (0, 5)
 
 
 # ---------------------------------------------------------------------------
@@ -177,21 +192,28 @@ def _cuda_ms(torch, fn, iters=20, warm=3):
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(torch, fn, iters=10):
+def _device_ms(torch, fn, iters=10, tries=3):
     """Summed device time of every kernel `fn` launches, per call, from
     torch.profiler: unlike CUDA events around back-to-back calls it leaves
-    out the gaps where the card waits for the host to launch."""
+    out the gaps where the card waits for the host to launch. Now and
+    then a trace records no kernel at all; it is taken again, up to
+    `tries` traces, and None (not measured) returned if none records
+    one."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type.name == "CUDA") / 1e3 / iters
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ms = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type.name == "CUDA") / 1e3 / iters
+        if ms > 0:
+            return ms
+    return None
 
 
 def _profile_step(torch, step):
@@ -315,6 +337,69 @@ def check_knn2(torch, knn2, cases):
             raise AssertionError(f"knn2 xy_mode={mode}: implausibly few "
                                  "neighbours")
     return max_err
+
+
+# K2a's ragged shapes (n1, n2): a single row, n2 inside one 64-column
+# tile, more rows than columns, and an odd size past a power of two
+KNN2_RAGGED = ((1, 5), (17, 70), (70, 17), (2047, 2049))
+
+
+def knn2_ragged_cases(torch, rng, dev):
+    """K2a cases at the ragged shapes, xy_mode 0, 1 and 2: random words,
+    ~10% invalid columns, planted ties where n2 allows, and the last
+    quarter of the rows (at least one) predicted far outside every gate;
+    plus, at 17 x 70, every column invalid. Returns [(label, xy_mode,
+    args, rows that must come out exactly (1e9, 1e9, -1))]."""
+    def words(n):
+        return torch.from_numpy(rng.integers(-2**31, 2**31, (n, 8),
+                                             dtype=np.int64)
+                                .astype(np.int32)).to(dev)
+
+    cases = []
+    for (n1, n2), all_invalid in ([(s, False) for s in KNN2_RAGGED]
+                                  + [((17, 70), True)]):
+        d1, d2 = words(n1), words(n2)
+        if n2 >= 4:  # equal candidates, and copies of a query
+            d2[n2 - 1] = d2[1]
+            d2[n2 - 2] = d2[0] = d1[0]
+        valid2 = torch.from_numpy(rng.random(n2) > 0.1).to(dev)
+        if all_invalid:
+            valid2[:] = False
+        pred = torch.from_numpy(
+            rng.uniform(0, 100, (n1, 2)).astype(np.float32)).to(dev)
+        pts2 = torch.from_numpy(
+            rng.uniform(0, 100, (n2, 2)).astype(np.float32)).to(dev)
+        gated = torch.arange(n1 - max(1, n1 // 4), n1, device=dev)
+        pred[gated] = 1e6
+        for mode in (0, 1, 2):
+            rad2 = torch.from_numpy((rng.uniform(20, 80, n1 if mode == 1
+                                                 else n2) ** 2)
+                                    .astype(np.float32)).to(dev)
+            args = (d1, d2, valid2) + ((pred, rad2, pts2) if mode else ())
+            faulted = (torch.arange(n1, device=dev) if all_invalid
+                       else gated if mode else gated[:0])
+            label = (f"{n1}x{n2}" + (" all invalid" if all_invalid else ""))
+            cases.append((label, mode, args, faulted))
+    return cases
+
+
+def check_knn2_ragged(torch, knn2, cases):
+    """Kernel vs plain on the card at the ragged shapes: bit-exact on all
+    three outputs, and exactly (1e9, 1e9, -1) on every row whose
+    candidates are all invalid or all gated."""
+    for label, mode, args, faulted in cases:
+        got = knn2.knn2(*args, xy_mode=mode)
+        want = knn2.knn2_plain(*args, xy_mode=mode)
+        for name, g, w in zip(("d_best", "d_second", "idx"), got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(
+                    f"knn2 {label} xy_mode={mode}: {name} differs in "
+                    f"{int((g != w).sum())} rows")
+        d, s, i = (x[faulted] for x in got)
+        if not (bool((d == 1e9).all()) and bool((s == 1e9).all())
+                and bool((i == -1).all())):
+            raise AssertionError(f"knn2 {label} xy_mode={mode}: faulted rows "
+                                 "not exactly (1e9, 1e9, -1)")
 
 
 def knn2_l2_inputs(torch, rng, d1, d2, xy1, xy2, dev, n_gated=64,
@@ -510,7 +595,7 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     for name, log in _build.BUILD_LOG.items():
         for line in log.splitlines():
-            if "registers" in line or "smem" in line:
+            if "registers" in line or "smem" in line or "spill" in line:
                 print(f"[ptxas {name}] {line.strip()}", file=sys.stderr)
 
     det = cfg.DetectorConfig(kind="FAST", max_keypoints=2048,
@@ -553,6 +638,8 @@ def main(argv=None) -> int:
                                          features.detector_bands(det))
     cases = knn2_inputs(torch, rng, d1, d2, corr.kps1.xy, corr.kps2.xy, dev)
     k2_err = check_knn2(torch, knn2, cases)
+    check_knn2_ragged(torch, knn2, knn2_ragged_cases(
+        torch, np.random.default_rng(args.seed + 1), dev))
     k2 = {m: functools.partial(knn2.knn2, *cases[m], xy_mode=m)
           for m in (0, 1)}
     k2_plain = {m: functools.partial(knn2.knn2_plain, *cases[m], xy_mode=m)
@@ -633,9 +720,21 @@ def main(argv=None) -> int:
     # bounds from this run's shapes
     n_px = HEIGHT * WIDTH
     k1_bound = _bound(2 * n_px * 4, n_px * 128 / FP32_FLOP_S)
-    n1 = n2 = det.max_keypoints
-    k2_bound = _bound((n1 + n2) * 32 + n2 + n1 * 12,
-                      n1 * n2 * 8 / (POPC_PER_CLK_SM * n_sm * SM_CLOCK_HZ))
+    # K2a: the least of two routes to the same distances, at this run's
+    # shapes: popcount of the XOR of 8 words per pair, or the tensor-core
+    # product (2 n1 n2 256 ops) with a 32-bit epilogue per pair. The
+    # tensor cores, the integer pipe and the fp32 pipe run side by side,
+    # so the busiest of them bounds the route.
+    n1, n2 = cases[0][0].shape[0], cases[0][1].shape[0]
+    pairs, sm_clk_s = n1 * n2, n_sm * SM_CLOCK_HZ
+    k2_bytes = (n1 + n2) * 32 + n2 + n1 * 12
+    k2_popc = _bound(k2_bytes, pairs * 8 / (POPC_PER_CLK_SM * sm_clk_s))
+    k2_tc, k2_tc_guided = (
+        _bound(k2_bytes, pairs / sm_clk_s * max(
+            2 * 256 / BMMA_OPS_PER_CLK_SM, n_int / INT32_PER_CLK_SM,
+            n_fp / FP32_PER_CLK_SM))
+        for n_int, n_fp in zip(KNN2_INT_OPS, KNN2_FP32_OPS))
+    k2_bound = min(k2_popc, k2_tc)
     kernels_line = {"kernels": [
         {"name": "fast_nms", "route": "cuda",
          "source": "matchinglib_poselib_torch/csrc/fast_nms.cu",
@@ -651,6 +750,9 @@ def main(argv=None) -> int:
          "launches": launches["knn2"], "max_abs_err": k2_err,
          "ms": k2_ms[0], "plain_ms": k2_plain_ms[0],
          "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
+         "bound_route": "tensor cores" if k2_bound is k2_tc else "popc",
+         "bound_popc_ms": k2_popc[0],
+         "bound_ms_guided": min(k2_popc, k2_tc_guided)[0],
          "library_ms": None,
          "device_ms": k2_dev_ms[0], "plain_device_ms": k2_plain_dev_ms[0],
          "ms_guided": k2_ms[1], "plain_ms_guided": k2_plain_ms[1],

@@ -6,8 +6,11 @@ pallas/knn.py`` (``knn2``):
 - ``knn2`` (``csrc/knn2.cu``), the packed binary body
   (``_knn2_kernel_packed``): descriptors are (N, 8) int32 words (256
   bits, the bit patterns of the JAX package's uint32 words); Hamming
-  distances. ``knn2_plain`` is the dense Hamming matrix + validity penalty
-  + radius gate + lowest-index top-2, with the same outputs bit for bit.
+  distances from the tensor cores' b1 AND-popc product
+  (``mma.sync.m16n8k256``), exact. ``knn2_plain`` is the dense Hamming
+  matrix + validity penalty + radius gate + lowest-index top-2, with the
+  same outputs bit for bit. On the card n2 <= 2^21 (the column field of
+  the kernel's 32-bit key) and the descriptors are 16-byte aligned.
 - ``knn2_l2`` (``csrc/knn2_l2.cu``), the general body (``_knn2_kernel``):
   (N, D) float32 descriptors, squared L2 distances in true fp32.
   ``knn2_l2_plain`` is the dense distance matrix + penalties + the same
@@ -105,6 +108,9 @@ def _check_args(fn, desc1, desc2, valid2, pred, rad2, pts2, xy_mode,
         raise ValueError(f"{fn}: all inputs must be on one device")
 
 
+MAX_COLUMNS = 1 << 21  # the column field of csrc/knn2.cu's 32-bit key
+
+
 def knn2(desc1, desc2, valid2, pred=None, rad2=None, pts2=None,
          xy_mode: int = 0):
     """Two nearest neighbours (Hamming) of every desc1 row among valid
@@ -119,6 +125,11 @@ def knn2(desc1, desc2, valid2, pred=None, rad2=None, pts2=None,
                 torch.int32, WORDS)
     dev = desc1.device
     n1, n2 = desc1.shape[0], desc2.shape[0]
+    if n2 > MAX_COLUMNS:
+        raise ValueError(f"knn2: {n2} candidates, the kernel takes at most "
+                         f"{MAX_COLUMNS}")
+    if desc1.data_ptr() % 16 or desc2.data_ptr() % 16:
+        raise ValueError("knn2: descriptors must be 16-byte aligned")
     d_best = torch.empty((n1,), dtype=torch.float32, device=dev)
     d_second = torch.empty((n1,), dtype=torch.float32, device=dev)
     idx = torch.empty((n1,), dtype=torch.int32, device=dev)

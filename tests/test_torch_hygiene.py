@@ -113,7 +113,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 def test_kernels_equal_plain_on_the_card():
     """Run on a CUDA card (chip_smoke.py drives the same checks at the
     main path's shapes): FAST+NMS equal to plain away from the border,
-    2-NN bit-exact for every xy_mode."""
+    2-NN bit-exact for every xy_mode, also at ragged shapes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.default_rng(1)
@@ -137,6 +137,11 @@ def test_kernels_equal_plain_on_the_card():
         want = knn2.knn2_plain(*args, xy_mode=mode)
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w)
+    # K2a at chip_smoke.py's ragged shapes
+    import chip_smoke
+
+    chip_smoke.check_knn2_ragged(torch, knn2, chip_smoke.knn2_ragged_cases(
+        torch, rng, torch.device("cuda")))
     # float 2-NN (K2b): the tolerance of tests/test_torch_matching.py
     for depth in (128, 67):
         f1 = torch.from_numpy(rng.normal(size=(n1, depth)).astype(np.float32))

@@ -36,30 +36,53 @@ def _words(rng, n_rows):
 
 
 def _guided_setup(rng, n1=120, n2=180):
-    """Set 2 = noisy copies of set 1 + distractors, positions near the
-    predictions, so real matches survive the ratio test inside the gate."""
+    """Set 2 = noisy copies of (the first n2 rows of) set 1 + distractors,
+    positions near the predictions, so real matches survive the ratio test
+    inside the gate."""
+    m = min(n1, n2)
     d1 = _words(rng, n1)
     flips = _words(rng, n1) & _words(rng, n1) & _words(rng, n1)
-    d2 = np.concatenate([d1 ^ flips, _words(rng, n2 - n1)])
+    d2 = np.concatenate([d1[:m] ^ flips[:m], _words(rng, n2 - m)])
     p1 = rng.uniform(0, 200, (n1, 2)).astype(np.float32)
     pred = (p1 + rng.normal(scale=5.0, size=(n1, 2))).astype(np.float32)
-    pts2 = np.concatenate([p1, rng.uniform(0, 200, (n2 - n1, 2))]).astype(
+    pts2 = np.concatenate([p1[:m], rng.uniform(0, 200, (n2 - m, 2))]).astype(
         np.float32)
     rad = rng.uniform(15, 60, (n1,)).astype(np.float32)
     return d1, d2, pred, pts2, rad
 
 
-@pytest.mark.parametrize("xy_mode", [0, 1, 2])
-def test_knn2_plain_equals_jax_knn2(xy_mode):
+# (n1, n2, first column of the planted ties): the original 120 x 180 case
+# keeps its ids; ragged shapes pin the semantics that the CUDA kernel's
+# edge tiles reproduce (one row; n2 inside one 64-column tile; n1 > n2).
+# At 17 x 70 every candidate is also made invalid, or (xy_mode 1 and 2)
+# put outside every gate: each row must give exactly (1e9, 1e9, -1).
+_KNN2_SHAPES = [(120, 180, 150), (1, 5, 2), (17, 70, 58), (70, 17, 14)]
+_KNN2_PARAMS = [
+    pytest.param(n1, n2, tie, mode, None,
+                 id=str(mode) if n1 == 120 else f"{n1}x{n2}-{mode}")
+    for n1, n2, tie in _KNN2_SHAPES for mode in (0, 1, 2)
+] + [
+    pytest.param(17, 70, 58, mode, fault, id=f"17x70-all-{fault}-{mode}")
+    for fault, modes in (("invalid", (0, 1, 2)), ("gated", (1, 2)))
+    for mode in modes
+]
+
+
+@pytest.mark.parametrize("n1,n2,tie,xy_mode,fault", _KNN2_PARAMS)
+def test_knn2_plain_equals_jax_knn2(n1, n2, tie, xy_mode, fault):
     rng = np.random.default_rng(10 + xy_mode)
-    d1, d2, pred, pts2, rad = _guided_setup(rng, 120, 180)
-    valid2 = rng.random(180) > 0.1
-    # planted ties: duplicate candidates at two columns
-    d2[150] = d2[3]
-    d2[151] = d1[7]
-    d2[152] = d1[7]
+    d1, d2, pred, pts2, rad = _guided_setup(rng, n1, n2)
+    valid2 = rng.random(n2) > 0.1
+    if fault == "invalid":
+        valid2[:] = False
+    elif fault == "gated":
+        pred[:] = 1e6
+    # planted ties: a duplicate candidate, and two copies of one query
+    d2[tie] = d2[3 if tie > 4 else 0]
+    d2[tie + 1] = d1[7 % n1]
+    d2[tie + 2] = d1[7 % n1]
     if xy_mode == 2:
-        rad2 = (rng.uniform(15, 60, (180,)) ** 2).astype(np.float32)
+        rad2 = (rng.uniform(15, 60, (n2,)) ** 2).astype(np.float32)
     else:
         rad2 = (rad * rad).astype(np.float32)
     args_j = [jm.bits_to_signs(jnp.asarray(d1)),
@@ -75,7 +98,11 @@ def test_knn2_plain_equals_jax_knn2(xy_mode):
     for o, r in zip(out, ref):
         np.testing.assert_array_equal(n(o), np.asarray(r))
     assert out[2].dtype == torch.int32
-    assert (n(out[2]) >= 0).sum() > 50
+    if fault:
+        assert (n(out[0]) == 1e9).all() and (n(out[1]) == 1e9).all()
+        assert (n(out[2]) == -1).all()
+    else:
+        assert (n(out[2]) >= 0).sum() > min(50, min(n1, n2) // 2)
 
 
 def _compare(ref, out):
