@@ -20,6 +20,9 @@ Phases (any failure exits non-zero):
      duplicate candidates and a block of fully gated rows: distances
      within 1e-5 (1 + |d|), idx equal where the gap exceeds 1e-5, the
      duplicates' lowest column and the gated rows' (1e9, 1e9, -1) exact;
+     and the same checks at the ragged shapes ``KNN2_L2_RAGGED`` x D =
+     128, 64, 67 (random unit rows, duplicates inside one tile and across
+     the first and last column slices, all-invalid and all-gated rows);
   4. ``StereoPipeline.run`` at the flagship config (FAST t=12, 2048
      keypoints, ORB, GMBSOF, 96 x 12 five-point hypotheses) on a seeded
      synthetic 1392x512 stereo scene with a planted pose: one warm run,
@@ -74,6 +77,8 @@ BMMA_OPS_PER_CLK_SM = 0.60 * 2 * 16 * 8 * 256
 # FSETP and a LOP (integer rate) and 2 FADD, 2 FMUL, FADD (fp32 rate)
 KNN2_INT_OPS = (4, 6)
 KNN2_FP32_OPS = (0, 5)
+# K2b's gate per pair: 2 FADD, 2 FMUL, FADD at the fp32 rate
+KNN2_L2_GATE_FP32_OPS = 5
 
 
 # ---------------------------------------------------------------------------
@@ -192,12 +197,13 @@ def _cuda_ms(torch, fn, iters=20, warm=3):
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(torch, fn, iters=10, tries=3):
-    """Summed device time of every kernel `fn` launches, per call, from
-    torch.profiler: unlike CUDA events around back-to-back calls it leaves
-    out the gaps where the card waits for the host to launch. Now and
-    then a trace records no kernel at all; it is taken again, up to
-    `tries` traces, and None (not measured) returned if none records
+def _device_profile(torch, fn, iters=10, tries=3):
+    """(device ms, device ops) per call of `fn`, from torch.profiler: the
+    summed time of every kernel it launches, which unlike CUDA events
+    around back-to-back calls leaves out the gaps where the card waits for
+    the host to launch, and the number of those kernels. Now and then a
+    trace records no kernel at all; it is taken again, up to `tries`
+    traces, and (None, None) (not measured) returned if none records
     one."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -209,11 +215,17 @@ def _device_ms(torch, fn, iters=10, tries=3):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        ms = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type.name == "CUDA") / 1e3 / iters
+        device = [e for e in prof.key_averages()
+                  if e.device_type.name == "CUDA"]
+        ms = sum(e.self_device_time_total for e in device) / 1e3 / iters
         if ms > 0:
-            return ms
-    return None
+            return ms, sum(e.count for e in device) / iters
+    return None, None
+
+
+def _device_ms(torch, fn, iters=10, tries=3):
+    """Device ms per call of `fn` (`_device_profile`)."""
+    return _device_profile(torch, fn, iters, tries)[0]
 
 
 def _profile_step(torch, step):
@@ -444,38 +456,126 @@ def check_knn2_l2(torch, knn2, cases, planted, gated):
     d_second == d_best on every planted duplicate, and exactly (1e9, 1e9,
     -1) on every gated row. Returns the max |kernel - plain| of the
     distances."""
-    q, lo, hi = planted
+    q, lo, _ = planted
     max_err = 0.0
     for mode, args in cases.items():
         got = knn2.knn2_l2(*args, xy_mode=mode)
         want = knn2.knn2_l2_plain(*args, xy_mode=mode)
-        torch.cuda.synchronize()
-        (gd, gs, gi), (wd, ws, wi) = got, want
-        for name, g, w in (("d_best", gd, wd), ("d_second", gs, ws)):
-            n_bad = int(((g - w).abs() > 1e-5 * (1 + w.abs())).sum())
-            if n_bad:
-                raise AssertionError(f"knn2_l2 xy_mode={mode}: {name} off "
-                                     f"tolerance in {n_bad} rows")
-            max_err = max(max_err, float((g.double() - w.double()).abs()
-                                         .max()))
-        gap = (ws - wd) > 1e-5
-        n_bad = int(((gi != wi) & gap).sum())
-        if n_bad:
-            raise AssertionError(f"knn2_l2 xy_mode={mode}: idx differs in "
-                                 f"{n_bad} rows with a gap > 1e-5")
-        if not (torch.equal(gi[q], lo.to(torch.int32))
-                and torch.equal(gs[q], gd[q])):
-            raise AssertionError(f"knn2_l2 xy_mode={mode}: planted "
-                                 "duplicates do not return the lowest "
-                                 "column with d_second == d_best")
-        if mode and not (bool((gd[gated] == 1e9).all())
-                         and bool((gs[gated] == 1e9).all())
-                         and bool((gi[gated] == -1).all())):
-            raise AssertionError(f"knn2_l2 xy_mode={mode}: gated rows not "
-                                 "exactly (1e9, 1e9, -1)")
-        if int((gi >= 0).sum()) < 100:
+        max_err = max(max_err, _check_l2(
+            torch, f"xy_mode={mode}", got, want, (q, lo),
+            gated if mode else gated[:0]))
+        if int((got[2] >= 0).sum()) < 100:
             raise AssertionError(f"knn2_l2 xy_mode={mode}: implausibly few "
                                  "neighbours")
+    return max_err
+
+
+def _check_l2(torch, label, got, want, planted, faulted):
+    """One K2b result against its plain version: |d_k - d_p| <= 1e-5 (1 +
+    |d_p|) for d_best and d_second, idx equal wherever the plain gap
+    exceeds 1e-5, the lowest column and d_second == d_best on every
+    planted (query, low column), exactly (1e9, 1e9, -1) on every faulted
+    row. Returns the max |kernel - plain| of the distances."""
+    torch.cuda.synchronize()
+    (gd, gs, gi), (wd, ws, wi) = got, want
+    max_err = 0.0
+    for name, g, w in (("d_best", gd, wd), ("d_second", gs, ws)):
+        n_bad = int(((g - w).abs() > 1e-5 * (1 + w.abs())).sum())
+        if n_bad:
+            raise AssertionError(f"knn2_l2 {label}: {name} off tolerance in "
+                                 f"{n_bad} rows")
+        max_err = max(max_err, float((g.double() - w.double()).abs().max()))
+    gap = (ws - wd) > 1e-5
+    n_bad = int(((gi != wi) & gap).sum())
+    if n_bad:
+        raise AssertionError(f"knn2_l2 {label}: idx differs in {n_bad} rows "
+                             "with a gap > 1e-5")
+    q, lo = planted
+    if not (torch.equal(gi[q], lo.to(torch.int32))
+            and torch.equal(gs[q], gd[q])):
+        raise AssertionError(f"knn2_l2 {label}: planted duplicates do not "
+                             "return the lowest column with d_second == "
+                             "d_best")
+    if not (bool((gd[faulted] == 1e9).all())
+            and bool((gs[faulted] == 1e9).all())
+            and bool((gi[faulted] == -1).all())):
+        raise AssertionError(f"knn2_l2 {label}: faulted rows not exactly "
+                             "(1e9, 1e9, -1)")
+    return max_err
+
+
+# K2b's ragged shapes (n1, n2), as K2a's, at each of these depths: SIFT,
+# M-SURF, and one that is not a multiple of 4 (4-byte copies)
+KNN2_L2_RAGGED = KNN2_RAGGED
+KNN2_L2_DEPTHS = (128, 64, 67)
+
+
+def knn2_l2_ragged_cases(torch, rng, dev):
+    """K2b cases at the ragged shapes and depths, xy_mode 0, 1 and 2:
+    random unit rows, ~10% invalid columns, the last quarter of the rows
+    predicted far outside every gate; planted duplicates of a query (two
+    valid columns on its predicted position), one pair inside one tile of
+    the first column slice and one pair across the first and the last
+    slice; plus, at 17 x 70, every column invalid, or (xy_mode 1 and 2)
+    every row gated. Returns [(label, xy_mode, args, planted (queries, low
+    columns), rows that must come out exactly (1e9, 1e9, -1))]."""
+    def unit(n, depth):
+        x = rng.normal(size=(n, depth)).astype(np.float32)
+        return torch.from_numpy(x / np.linalg.norm(x, axis=1, keepdims=True))
+
+    cases = []
+    shapes = ([(s, None) for s in KNN2_L2_RAGGED]
+              + [((17, 70), "invalid"), ((17, 70), "gated")])
+    for depth in KNN2_L2_DEPTHS:
+        for (n1, n2), fault in shapes:
+            d1, d2 = unit(n1, depth), unit(n2, depth)
+            valid2 = torch.from_numpy(rng.random(n2) > 0.1)
+            pred = torch.from_numpy(
+                rng.uniform(0, 100, (n1, 2)).astype(np.float32))
+            pts2 = torch.from_numpy(
+                rng.uniform(0, 100, (n2, 2)).astype(np.float32))
+            planted = ([(0, 0, n2 - 1)] if n1 == 1
+                       else [(0, 1, 2), (1, 0, n2 - 1)])
+            for q, lo, hi in planted:
+                d2[lo] = d2[hi] = d1[q]
+                valid2[lo] = valid2[hi] = True
+                pts2[lo] = pts2[hi] = pred[q]
+            gated = torch.arange(n1 - n1 // 4, n1)
+            pred[gated] = 1e6
+            if fault == "invalid":
+                valid2[:] = False
+            elif fault == "gated":
+                pred[:] = 1e6
+            if fault:
+                planted = []
+            q = torch.tensor([p[0] for p in planted], dtype=torch.int64)
+            lo = torch.tensor([p[1] for p in planted], dtype=torch.int64)
+            d1, d2, valid2, pred, pts2 = (
+                x.to(dev) for x in (d1, d2, valid2, pred, pts2))
+            for mode in (0, 1, 2) if fault != "gated" else (1, 2):
+                rad2 = torch.from_numpy(
+                    (rng.uniform(20, 80, n1 if mode == 1 else n2) ** 2)
+                    .astype(np.float32)).to(dev)
+                args = (d1, d2, valid2) + ((pred, rad2, pts2) if mode else ())
+                faulted = (torch.arange(n1) if fault
+                           else gated if mode else gated[:0])
+                label = (f"{n1}x{n2}x{depth}"
+                         + (f" all {fault}" if fault else "")
+                         + f" xy_mode={mode}")
+                cases.append((label, mode, args, (q.to(dev), lo.to(dev)),
+                              faulted.to(dev)))
+    return cases
+
+
+def check_knn2_l2_ragged(torch, knn2, cases):
+    """K2b vs plain on the card at the ragged shapes (`_check_l2`).
+    Returns the max |kernel - plain| of the distances."""
+    max_err = 0.0
+    for label, mode, args, planted, faulted in cases:
+        got = knn2.knn2_l2(*args, xy_mode=mode)
+        want = knn2.knn2_l2_plain(*args, xy_mode=mode)
+        max_err = max(max_err, _check_l2(torch, label, got, want, planted,
+                                         faulted))
     return max_err
 
 
@@ -651,7 +751,8 @@ def main(argv=None) -> int:
 
     # 3b. K2b: float 2-NN vs plain on the scene's SIFT and M-SURF
     # descriptors (the float paths' shapes)
-    k2b_err = 0.0
+    k2b_err = check_knn2_l2_ragged(torch, knn2, knn2_l2_ragged_cases(
+        torch, np.random.default_rng(args.seed + 2), dev))
     k2b = {}
     for name, (dcfg, ccfg, _) in (("sift", sift), ("msurf", surf)):
         kp1 = features.detect_keypoints(i1, dcfg)
@@ -664,17 +765,26 @@ def main(argv=None) -> int:
                                              gated))
         (s1, depth), s2 = f1.shape, f2.shape[0]
         rec = {"shape": [s1, s2, depth]}
-        rec["bound_ms"], rec["bound_by"] = _bound(
-            (s1 + s2) * depth * 4 + s2 + s1 * 12,
-            (2 * s1 * s2 * depth + 2 * (s1 + s2) * depth + 4 * s1 * s2)
-            / FP32_FLOP_S)
+        k2b_bytes = (s1 + s2) * depth * 4 + s2 + s1 * 12
+        k2b_ops_s = ((2 * s1 * s2 * depth + 2 * (s1 + s2) * depth
+                      + 4 * s1 * s2) / FP32_FLOP_S)
+        rec["bound_ms"], rec["bound_by"] = _bound(k2b_bytes, k2b_ops_s)
+        # the gate's fp32 ops per pair, on the same pipe
+        rec["bound_ms_guided"] = _bound(
+            k2b_bytes, k2b_ops_s + s1 * s2 * KNN2_L2_GATE_FP32_OPS
+            / (FP32_PER_CLK_SM * n_sm * SM_CLOCK_HZ))[0]
         for m in (0, 1):
             fk = functools.partial(knn2.knn2_l2, *fcases[m], xy_mode=m)
             fp = functools.partial(knn2.knn2_l2_plain, *fcases[m], xy_mode=m)
             rec[m] = {"ms": _cuda_ms(torch, fk),
-                      "plain_ms": _cuda_ms(torch, fp),
-                      "device_ms": _device_ms(torch, fk),
-                      "plain_device_ms": _device_ms(torch, fp)}
+                      "plain_ms": _cuda_ms(torch, fp)}
+            rec[m]["device_ms"], rec[m]["kernels_per_call"] = (
+                _device_profile(torch, fk))
+            rec[m]["plain_device_ms"] = _device_ms(torch, fp)
+            if rec[m]["kernels_per_call"] != 1:
+                raise AssertionError(
+                    f"knn2_l2 {name} xy_mode={m}: "
+                    f"{rec[m]['kernels_per_call']} kernels per call, not 1")
         k2b[name] = rec
 
     Kt = torch.from_numpy(K).to(dev)
@@ -765,8 +875,14 @@ def main(argv=None) -> int:
          "ms": k2b["sift"][0]["ms"], "plain_ms": k2b["sift"][0]["plain_ms"],
          "device_ms": k2b["sift"][0]["device_ms"],
          "plain_device_ms": k2b["sift"][0]["plain_device_ms"],
+         "kernels_per_call": k2b["sift"][0]["kernels_per_call"],
          "bound_ms": k2b["sift"]["bound_ms"],
          "bound_by": k2b["sift"]["bound_by"], "library_ms": None,
+         "ms_guided": k2b["sift"][1]["ms"],
+         "plain_ms_guided": k2b["sift"][1]["plain_ms"],
+         "device_ms_guided": k2b["sift"][1]["device_ms"],
+         "plain_device_ms_guided": k2b["sift"][1]["plain_device_ms"],
+         "bound_ms_guided": k2b["sift"]["bound_ms_guided"],
          "by_shape": k2b},
     ]}
     print(json.dumps(kernels_line))

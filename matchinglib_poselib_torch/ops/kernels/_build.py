@@ -42,8 +42,7 @@ SIGNATURES = {
     },
     "knn2_l2": {
         "knn2_l2_launch": (
-            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-             _P, _P, _P], _I
+            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P], _I
         ),
         "knn2_l2_error_string": ([_I], ctypes.c_char_p),
     },

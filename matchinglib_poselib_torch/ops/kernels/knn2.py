@@ -15,7 +15,8 @@ pallas/knn.py`` (``knn2``):
   (N, D) float32 descriptors, squared L2 distances in true fp32.
   ``knn2_l2_plain`` is the dense distance matrix + penalties + the same
   top-2 rule; the kernel sums its dot products in another order, so the
-  two agree to f32 rounding.
+  two agree to f32 rounding. On the card D <= 640 (the kernel keeps its
+  query tile in shared memory at full depth).
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. xy_mode 0: no gate; 1: pred (N1, 2), rad2
@@ -159,8 +160,7 @@ knn2.launches = 0
 # float descriptors: squared L2 (the general body)
 # ---------------------------------------------------------------------------
 
-_BN = 64  # candidate columns per tile of csrc/knn2_l2.cu
-_BM = 64  # query rows per block
+MAX_DEPTH = 640  # csrc/knn2_l2.cu keeps the query tile at full depth
 
 
 def _gate(dist, pred, rad2, pts2, xy_mode):
@@ -204,17 +204,6 @@ def knn2_l2_plain(desc1, desc2, valid2, pred=None, rad2=None, pts2=None,
     return d_best, d_second, idx
 
 
-def _splits(n1: int, n2: int, sm_count: int) -> tuple[int, int]:
-    """(splits, columns per split) of the column sweep: enough slices that
-    the grid holds >= 2 blocks per SM, each slice a whole number of
-    64-column tiles."""
-    row_blocks = max(1, -(-n1 // _BM))
-    want = max(1, -(-2 * sm_count // row_blocks))
-    tiles = max(1, -(-n2 // _BN))
-    per = -(-tiles // min(want, tiles)) * _BN
-    return max(1, -(-n2 // per)), per
-
-
 def knn2_l2(desc1, desc2, valid2, pred=None, rad2=None, pts2=None,
             xy_mode: int = 0):
     """Two nearest neighbours (squared L2) of every desc1 row among valid
@@ -230,6 +219,9 @@ def knn2_l2(desc1, desc2, valid2, pred=None, rad2=None, pts2=None,
                              xy_mode)
     if desc1.device.type != "cuda":
         raise ValueError(f"knn2_l2: unsupported device {desc1.device}")
+    if depth > MAX_DEPTH:
+        raise ValueError(f"knn2_l2: depth {depth}, the kernel takes at most "
+                         f"{MAX_DEPTH}")
     dev = desc1.device
     n1, n2 = desc1.shape[0], desc2.shape[0]
     d_best = torch.empty((n1,), dtype=torch.float32, device=dev)
@@ -238,11 +230,6 @@ def knn2_l2(desc1, desc2, valid2, pred=None, rad2=None, pts2=None,
     if n1 == 0:
         return d_best, d_second, idx
     lib = _build.load("knn2_l2")
-    splits, per = _splits(
-        n1, n2, torch.cuda.get_device_properties(dev).multi_processor_count)
-    part_d1 = torch.empty((splits, n1), dtype=torch.float32, device=dev)
-    part_i1 = torch.empty((splits, n1), dtype=torch.int32, device=dev)
-    part_d2 = torch.empty((splits, n1), dtype=torch.float32, device=dev)
 
     def ptr(t):
         return None if t is None or not xy_mode else t.data_ptr()
@@ -252,9 +239,7 @@ def knn2_l2(desc1, desc2, valid2, pred=None, rad2=None, pts2=None,
         rc = lib.knn2_l2_launch(
             desc1.data_ptr(), desc2.data_ptr(), valid2.data_ptr(),
             ptr(pred), ptr(rad2), ptr(pts2), n1, n2, depth, xy_mode,
-            splits, per, part_d1.data_ptr(), part_i1.data_ptr(),
-            part_d2.data_ptr(), d_best.data_ptr(), d_second.data_ptr(),
-            idx.data_ptr(), stream,
+            d_best.data_ptr(), d_second.data_ptr(), idx.data_ptr(), stream,
         )
     _build.check(lib, "knn2_l2", rc)
     knn2_l2.launches += 1

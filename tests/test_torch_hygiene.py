@@ -161,3 +161,7 @@ def test_kernels_equal_plain_on_the_card():
             gap = (ws - wd) > 1e-5
             assert torch.equal(gi[gap], wi[gap])
             assert int(gi[5]) == 11 and float(gs[5]) == float(gd[5])
+    # K2b at chip_smoke.py's ragged shapes and depths
+    chip_smoke.check_knn2_l2_ragged(
+        torch, knn2,
+        chip_smoke.knn2_l2_ragged_cases(torch, rng, torch.device("cuda")))

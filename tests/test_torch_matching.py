@@ -225,19 +225,21 @@ def _unit_rows(rng, n_rows, d):
     return x / np.linalg.norm(x, axis=1, keepdims=True)
 
 
-def _float_setup(rng, d, n1=150, n2=230, n_gated=10):
+def _float_setup(rng, d, n1=150, n2=230, n_gated=10, planted=None):
     """Unit float descriptors (SIFT-like scale), set 2 = noisy copies of
     set 1 + distractors, ~10% invalid columns, two planted duplicate
     candidates per planted query (valid, on its predicted position), and
     `n_gated` trailing queries predicted far off."""
+    m = min(n1 // 2, n2)
     d1 = _unit_rows(rng, n1, d)
     d2 = _unit_rows(rng, n2, d)
-    d2[:n1 // 2] = d1[:n1 // 2] + 0.15 * _unit_rows(rng, n1 // 2, d)
+    d2[:m] = d1[:m] + 0.15 * _unit_rows(rng, m, d)
     valid2 = rng.random(n2) > 0.1
     pred = rng.uniform(0, 200, (n1, 2)).astype(np.float32)
     pts2 = rng.uniform(0, 200, (n2, 2)).astype(np.float32)
-    pts2[:n1 // 2] = pred[:n1 // 2] + rng.normal(scale=3, size=(n1 // 2, 2))
-    planted = {7: (200, 211), 31: (203, 229)}
+    pts2[:m] = pred[:m] + rng.normal(scale=3, size=(m, 2))
+    if planted is None:
+        planted = {7: (200, 211), 31: (203, 229)}
     for q, cols in planted.items():
         for c in cols:
             d2[c] = d1[q]
@@ -247,12 +249,43 @@ def _float_setup(rng, d, n1=150, n2=230, n_gated=10):
     return d1, d2, valid2, pred, pts2, planted
 
 
-@pytest.mark.parametrize("depth", [128, 64, 67])
-@pytest.mark.parametrize("xy_mode", [0, 1, 2])
-def test_knn2_l2_plain_matches_jax_general_body(xy_mode, depth):
-    rng = np.random.default_rng(100 * depth + xy_mode)
-    d1, d2, valid2, pred, pts2, planted = _float_setup(rng, depth)
-    n1, n2 = d1.shape[0], d2.shape[0]
+# (n1, n2, trailing gated queries, planted {query: duplicate columns}):
+# the original 150 x 230 case keeps its ids; ragged shapes pin the edge
+# semantics that the CUDA kernel's tiles and column slices reproduce (one
+# row; n2 inside one tile; n1 > n2), with duplicates of a query in
+# neighbouring columns and at both ends of the columns. At 17 x 70 every
+# candidate is also made invalid, or (xy_mode 1 and 2) every query put
+# outside every gate: each row must give exactly (1e9, 1e9, -1).
+_L2_SHAPES = [(150, 230, 10, None), (1, 5, 0, {0: (0, 4)}),
+              (17, 70, 4, {0: (1, 2), 1: (0, 69)}),
+              (70, 17, 10, {0: (1, 2), 1: (0, 16)})]
+_L2_PARAMS = [
+    pytest.param(n1, n2, n_gated, planted, mode, depth, None,
+                 id=(f"{mode}-{depth}" if n1 == 150
+                     else f"{n1}x{n2}-{mode}-{depth}"))
+    for n1, n2, n_gated, planted in _L2_SHAPES for mode in (0, 1, 2)
+    for depth in (128, 64, 67)
+] + [
+    pytest.param(17, 70, 4, {0: (1, 2)}, mode, depth, fault,
+                 id=f"17x70-all-{fault}-{mode}-{depth}")
+    for fault, modes in (("invalid", (0, 1, 2)), ("gated", (1, 2)))
+    for mode in modes for depth in (128, 64, 67)
+]
+
+
+@pytest.mark.parametrize("n1,n2,n_gated,planted,xy_mode,depth,fault",
+                         _L2_PARAMS)
+def test_knn2_l2_plain_matches_jax_general_body(n1, n2, n_gated, planted,
+                                                xy_mode, depth, fault):
+    rng = np.random.default_rng(100 * depth + xy_mode + 7 * (n1 != 150))
+    d1, d2, valid2, pred, pts2, planted = _float_setup(
+        rng, depth, n1, n2, n_gated, planted)
+    if fault == "invalid":
+        valid2[:] = False
+    elif fault == "gated":
+        pred[:] = 1e6
+    if fault:
+        planted, n_gated = {}, n1
     rad2 = (rng.uniform(15, 60, n1 if xy_mode == 1 else n2) ** 2).astype(
         np.float32)
     extra = (pred, rad2, pts2) if xy_mode else ()
@@ -269,11 +302,16 @@ def test_knn2_l2_plain_matches_jax_general_body(xy_mode, depth):
     np.testing.assert_array_equal(out[2][gap], ref[2][gap])
     for q, cols in planted.items():
         assert out[2][q] == ref[2][q] == min(cols)
-        assert out[1][q] == out[0][q]
-    if xy_mode:
+        assert ref[1][q] == ref[0][q]
+        if n1 == 150:
+            assert out[1][q] == out[0][q]
+        else:  # a CPU product of few rows may sum a tail column otherwise
+            assert abs(out[1][q] - out[0][q]) <= 1e-5
+    if xy_mode or fault:
         for o, r, want in zip(out, ref, (1e9, 1e9, -1)):
-            assert np.all(o[-10:] == want) and np.all(r[-10:] == want)
-    assert (out[2] >= 0).sum() > 50
+            assert np.all(o[n1 - n_gated:] == want)
+            assert np.all(r[n1 - n_gated:] == want)
+    assert (out[2] >= 0).sum() > (50 if n1 == 150 else 0) or fault
 
 
 @pytest.mark.parametrize("cross_check", [False, True])
