@@ -5,9 +5,12 @@
 Phases (any failure exits non-zero):
   1. build the CUDA kernels from ``matchinglib_poselib_torch/csrc`` (one
      nvcc per source, in parallel);
-  2. fused FAST+NMS kernel vs its plain version on the scene's images at
-     (1, 512, 1392) and (2, 512, 1392): equal away from the border, up to
-     f32 ties inside an NMS window;
+  2. fused FAST+NMS kernel vs its plain version at every pixel, border
+     included, against the plain version of the input zero-padded by
+     3 + r: on the scene's images at (1, 512, 1392) and (2, 512, 1392) and
+     at the ragged shapes and radii of ``FAST_NMS_PADDED``; equal up to f32
+     ties inside an NMS window (0 expected); radius 6 and a negative
+     threshold must raise on the card; one kernel per call;
   3. fused binary 2-NN kernel (tensor-core b1 AND-popc product) vs its
      plain version at 2048 x 2048 on the scene's ORB descriptors, xy_mode
      0, 1 and 2, with ~10% invalid columns and planted ties: bit-exact;
@@ -79,6 +82,24 @@ KNN2_INT_OPS = (4, 6)
 KNN2_FP32_OPS = (0, 5)
 # K2b's gate per pair: 2 FADD, 2 FMUL, FADD at the fp32 rate
 KNN2_L2_GATE_FP32_OPS = 5
+# K1 per pixel, at its least. fp32 pipe: 16 FADD for the ring differences
+# d, 16 for |d| - t (the relu's argument on either side), 32 predicated
+# FADD for the relu sums and 32 for the mask bits (2^s under the same
+# predicate), 2 to turn the masks into integers, and 2 IMAD to double the
+# masks (IMAD issues on the FMA pipe). Compare / integer pipe: 32 FSETP
+# (one per side and sample serves the sum and the mask bit), 16 SHF / LOP
+# for the arc test's 4 rounds on both sides and 2 for its combined test,
+# FMNMX and a select for the score, 3 for the keep test; plus the
+# (2r+1)^2 window max, `k1_window_ops`
+K1_FP32_OPS = 100
+K1_ALU_OPS = 55
+
+
+def k1_window_ops(radius):
+    """Max ops per pixel of a (2r+1)^2 window max at its least: separable,
+    2r per axis, or a running max (van Herk / Gil-Werman), about 3 per axis
+    whatever r is."""
+    return min(4 * radius, 6)
 
 
 # ---------------------------------------------------------------------------
@@ -202,13 +223,15 @@ def _device_profile(torch, fn, iters=10, tries=3):
     summed time of every kernel it launches, which unlike CUDA events
     around back-to-back calls leaves out the gaps where the card waits for
     the host to launch, and the number of those kernels. Now and then a
-    trace records no kernel at all; it is taken again, up to `tries`
-    traces, and (None, None) (not measured) returned if none records
-    one."""
+    trace records no kernel at all, or drops one (a count that is not a
+    whole number per call); it is taken again, up to `tries` traces. If
+    none records a kernel, (None, None) (not measured); if each drops one,
+    the last trace's numbers."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    out = None, None
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -218,9 +241,12 @@ def _device_profile(torch, fn, iters=10, tries=3):
         device = [e for e in prof.key_averages()
                   if e.device_type.name == "CUDA"]
         ms = sum(e.self_device_time_total for e in device) / 1e3 / iters
+        count = sum(e.count for e in device)
         if ms > 0:
-            return ms, sum(e.count for e in device) / iters
-    return None, None
+            out = ms, count / iters
+            if count % iters == 0:
+                break
+    return out
 
 
 def _device_ms(torch, fn, iters=10, tries=3):
@@ -276,37 +302,70 @@ def _dir_deg(a, b):
 # ---------------------------------------------------------------------------
 
 
-def check_fast_nms(torch, fast_nms, imgs, threshold, radius, border=16):
-    """Kernel vs plain on the card: equal at every pixel `border` or more
-    from the edge, except where an NMS decision differs because another
-    pixel of the window holds the same score (an f32 tie). Returns (max
-    |kernel - plain| over the interior, number of tie mismatches)."""
+def check_fast_nms(torch, fast_nms, imgs, threshold, radius,
+                   min_corners=1000):
+    """Kernel vs plain on the card at every pixel, against the plain
+    version of the input zero-padded by 3 + radius and cropped back (the
+    kernel reads pixels outside the image as 0, the plain version wraps;
+    3 + radius or more from the border the two references agree). Equal
+    except where an NMS decision differs because another pixel of the
+    window holds the same score (an f32 tie). Returns (max |kernel -
+    plain|, number of tie mismatches)."""
     out = fast_nms.fast_nms_score(imgs, threshold, radius)
-    ref = fast_nms.fast_nms_score_plain(imgs, threshold, radius)
-    torch.cuda.synchronize()
-    oi = out[:, border:-border, border:-border]
-    ri = ref[:, border:-border, border:-border]
-    max_err = float((oi - ri).abs().max())
-    bad = torch.nonzero(oi != ri).cpu().numpy()
+    p = 3 + radius
+    ref = fast_nms.fast_nms_score_plain(
+        torch.nn.functional.pad(imgs, (p, p, p, p)), threshold,
+        radius)[:, p:-p, p:-p]
     o, r = out.cpu().numpy(), ref.cpu().numpy()
+    max_err = float(np.abs(o - r).max())
+    bad = np.argwhere(o != r)
     for b, y, x in bad:
-        y, x = y + border, x + border
         v = max(o[b, y, x], r[b, y, x])
-        tie = False
-        if min(o[b, y, x], r[b, y, x]) == 0.0:  # one side suppressed it
-            for dy in range(-radius, radius + 1):
-                for dx in range(-radius, radius + 1):
-                    if (dy or dx) and abs(max(o[b, y + dy, x + dx],
-                                              r[b, y + dy, x + dx]) - v) \
-                            <= 1e-6 * max(v, 1.0):
-                        tie = True
-        if not tie:
+        win = (slice(max(0, y - radius), y + radius + 1),
+               slice(max(0, x - radius), x + radius + 1))
+        near = np.abs(np.maximum(o[b][win], r[b][win]) - v) \
+            <= 1e-6 * max(v, 1.0)
+        # one side suppressed it, and a neighbour (the pixel itself is one
+        # of `near`) holds the same score
+        if min(o[b, y, x], r[b, y, x]) != 0.0 or int(near.sum()) < 2:
             raise AssertionError(
-                f"fast_nms: non-tie mismatch at {(b, y, x)}: "
-                f"kernel {o[b, y, x]} plain {r[b, y, x]}")
-    if int((oi > 0).sum()) < 1000:
-        raise AssertionError("fast_nms: implausibly few corners")
+                f"fast_nms {tuple(imgs.shape)} r={radius}: non-tie mismatch "
+                f"at {(int(b), int(y), int(x))}: kernel {o[b, y, x]} "
+                f"plain {r[b, y, x]}")
+    if int((o > 0).sum()) < min_corners:
+        raise AssertionError(f"fast_nms {tuple(imgs.shape)} r={radius}: "
+                             "implausibly few corners")
     return max_err, len(bad)
+
+
+# K1's every-pixel cases (shape, radius): ragged shapes at the main path's
+# radius, the main path's shapes (None: the scene's images), and one ragged
+# shape at every other radius the kernel is built for
+FAST_NMS_PADDED = ((((1, 37, 53), 3), ((2, 70, 129), 3), ((3, 33, 200), 3),
+                    (None, 3))
+                   + tuple(((2, 70, 129), r) for r in (0, 1, 2, 4, 5)))
+
+
+def check_fast_nms_padded(torch, fast_nms, rng, scene, threshold, dev,
+                          scene_min_corners=1000):
+    """`check_fast_nms` over `FAST_NMS_PADDED`: uniform random images at
+    the ragged shapes, the scene's (1, H, W) and (2, H, W) stacks in
+    `scene`. Returns (max |kernel - plain|, ties) over the scene's stacks
+    and over every case."""
+    scene_err, scene_ties, max_err, ties = 0.0, 0, 0.0, 0
+    for shape, radius in FAST_NMS_PADDED:
+        if shape is None:
+            cases = [(imgs, scene_min_corners) for imgs in scene]
+        else:
+            cases = [(torch.from_numpy(rng.random(shape, np.float32))
+                      .to(dev), 10)]
+        for imgs, min_corners in cases:
+            err, n = check_fast_nms(torch, fast_nms, imgs, threshold, radius,
+                                    min_corners=min_corners)
+            max_err, ties = max(max_err, err), ties + n
+            if shape is None:
+                scene_err, scene_ties = max(scene_err, err), scene_ties + n
+    return (scene_err, scene_ties), (max_err, ties)
 
 
 def knn2_inputs(torch, rng, d1, d2, xy1, xy2, dev):
@@ -715,20 +774,31 @@ def main(argv=None) -> int:
     i2 = torch.from_numpy(img2).to(dev)
     thr = det.fast_threshold / 255.0
 
-    # 2. K1: fused FAST+NMS vs plain at the main path's shapes
+    # 2. K1: fused FAST+NMS vs the zero-padded plain version at every
+    # pixel, at the main path's shapes and at ragged shapes and radii
     one = i1[None].contiguous()
     two = torch.stack([i1, i2]).contiguous()
-    k1_err = 0.0
-    k1_ties = 0
-    for imgs in (one, two):
-        err, ties = check_fast_nms(torch, fast_nms, imgs, thr, det.nms_radius)
-        k1_err, k1_ties = max(k1_err, err), k1_ties + ties
+    (k1_err, k1_ties), (k1_pad_err, k1_pad_ties) = check_fast_nms_padded(
+        torch, fast_nms, np.random.default_rng(args.seed + 3), (one, two),
+        thr, dev)
+    for bad in (dict(radius=fast_nms.MAX_RADIUS + 1),
+                dict(threshold=-thr)):
+        kw = dict(threshold=thr, radius=det.nms_radius) | bad
+        try:
+            fast_nms.fast_nms_score(one, **kw)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"fast_nms: {bad} on the card did not raise")
     k1 = functools.partial(fast_nms.fast_nms_score, one, thr, det.nms_radius)
     k1_plain = functools.partial(fast_nms.fast_nms_score_plain, one, thr,
                                  det.nms_radius)
     k1_ms, k1_plain_ms = _cuda_ms(torch, k1), _cuda_ms(torch, k1_plain)
-    k1_dev_ms = _device_ms(torch, k1)
+    k1_dev_ms, k1_per_call = _device_profile(torch, k1)
     k1_plain_dev_ms = _device_ms(torch, k1_plain)
+    if k1_per_call != 1:
+        raise AssertionError(f"fast_nms: {k1_per_call} kernels per call, "
+                             "not 1")
 
     # 3. K2a: fused 2-NN vs plain at 2048 x 2048 on the scene's descriptors
     corr = pipeline.get_correspondences(i1, i2, det, desc, match)
@@ -826,17 +896,27 @@ def main(argv=None) -> int:
         agree = rec.get("cpu_agree")
         if agree and min(agree.values()) < 0.99:
             failures.append(f"{c_name}: card vs CPU slots {agree}")
+    if k1_ties or k1_pad_ties:
+        failures.append(f"fast_nms: {k1_ties} tie mismatches at the main "
+                        f"shapes, {k1_pad_ties} in all, expected 0")
 
-    # bounds from this run's shapes
-    n_px = HEIGHT * WIDTH
-    k1_bound = _bound(2 * n_px * 4, n_px * 128 / FP32_FLOP_S)
+    # bounds from this run's shapes. K1: the busiest of the bytes, the fp32
+    # pipe and the compare / integer pipe, which run side by side
+    n_px, sm_clk_s = one.numel(), n_sm * SM_CLOCK_HZ
+    k1_pipes = {
+        "fp32": n_px * K1_FP32_OPS / (FP32_PER_CLK_SM * sm_clk_s),
+        "compare/int": n_px * (K1_ALU_OPS + k1_window_ops(det.nms_radius))
+        / (INT32_PER_CLK_SM * sm_clk_s),
+    }
+    k1_pipe = max(k1_pipes, key=k1_pipes.get)
+    k1_bound = _bound(2 * n_px * 4, k1_pipes[k1_pipe])
     # K2a: the least of two routes to the same distances, at this run's
     # shapes: popcount of the XOR of 8 words per pair, or the tensor-core
     # product (2 n1 n2 256 ops) with a 32-bit epilogue per pair. The
     # tensor cores, the integer pipe and the fp32 pipe run side by side,
     # so the busiest of them bounds the route.
     n1, n2 = cases[0][0].shape[0], cases[0][1].shape[0]
-    pairs, sm_clk_s = n1 * n2, n_sm * SM_CLOCK_HZ
+    pairs = n1 * n2
     k2_bytes = (n1 + n2) * 32 + n2 + n1 * 12
     k2_popc = _bound(k2_bytes, pairs * 8 / (POPC_PER_CLK_SM * sm_clk_s))
     k2_tc, k2_tc_guided = (
@@ -852,7 +932,12 @@ def main(argv=None) -> int:
          "launches": launches["fast_nms"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
+         "bound_pipe": k1_pipe if k1_bound[1] == "operations" else "memory",
+         "bound_pipes_ms": {k: v * 1e3 for k, v in k1_pipes.items()},
          "library_ms": None, "tie_mismatches": k1_ties,
+         "all_cases_max_abs_err": k1_pad_err,
+         "all_cases_tie_mismatches": k1_pad_ties,
+         "kernels_per_call": k1_per_call,
          "device_ms": k1_dev_ms, "plain_device_ms": k1_plain_dev_ms},
         {"name": "knn2", "route": "cuda",
          "source": "matchinglib_poselib_torch/csrc/knn2.cu",

@@ -31,7 +31,6 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "fast_nms": {
         "fast_nms_launch": ([_P, _P, _I, _I, _I, _F, _I, _P], _I),
-        "fast_nms_smem_bytes": ([_I], ctypes.c_longlong),
         "fast_nms_error_string": ([_I], ctypes.c_char_p),
     },
     "knn2": {

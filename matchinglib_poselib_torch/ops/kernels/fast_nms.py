@@ -13,8 +13,8 @@ import torch
 
 from matchinglib_poselib_torch.ops.kernels import _build
 
-# dynamic shared memory a block may opt into on sm_90 (bytes)
-_MAX_SMEM = 232448
+# largest NMS radius the kernel is built for (as the Pallas kernel's halo)
+MAX_RADIUS = 5
 
 
 def fast_nms_score_plain(
@@ -36,6 +36,8 @@ def fast_nms_score(
     """FAST-9/16 score with fused NMS: (B, H, W) float32 -> same.
 
     threshold in intensity units of the [0, 1] image (fast_threshold/255).
+    On a CUDA tensor the radius is 0..MAX_RADIUS and the threshold is
+    >= 0: the kernel's relu sums equal the plain version's only then.
     """
     if imgs.device.type == "cpu":
         return fast_nms_score_plain(imgs, threshold, radius)
@@ -48,14 +50,16 @@ def fast_nms_score(
         )
     if not imgs.is_contiguous():
         raise ValueError("fast_nms_score: input must be contiguous")
-    if radius < 0:
-        raise ValueError(f"fast_nms_score: radius {radius} < 0")
-    lib = _build.load("fast_nms")
-    if lib.fast_nms_smem_bytes(radius) > _MAX_SMEM:
+    if not 0 <= radius <= MAX_RADIUS:
         raise ValueError(
-            f"fast_nms_score: radius {radius} needs more shared memory "
-            "than a block may use"
+            f"fast_nms_score: radius {radius} outside 0..{MAX_RADIUS} on the "
+            "card"
         )
+    if not threshold >= 0:
+        raise ValueError(
+            f"fast_nms_score: threshold {threshold} on the card must be >= 0"
+        )
+    lib = _build.load("fast_nms")
     B, H, W = imgs.shape
     out = torch.empty_like(imgs)
     if imgs.numel() == 0:

@@ -54,23 +54,45 @@ def test_fast_score_and_nms_exact(name):
     assert (ref > 0).sum() > 20
 
 
-def test_plain_fast_nms_matches_pallas_interior():
-    """The kernel's plain version vs the Pallas kernel (interpret mode):
-    equal at least 16 px from the border, up to f32 ties inside an NMS
-    window (the tie rule of tests/test_pallas_fast.py)."""
-    img = _images()["random_96x200"]
-    out = n(fast_nms.fast_nms_score_plain(t(img)[None], THR, 3))[0]
-    ref = np.asarray(pfast.fast_nms_score(jnp.asarray(img), THR, 3,
+# (image, radius, border): the interior case, then whole images
+_PALLAS_FAST_CASES = {
+    "random_96x200": ("random_96x200", 3, 16),
+    "zero_border_37x53_r3": ((37, 53), 3, 0),
+    "zero_border_70x129_r3": ((70, 129), 3, 0),
+    "zero_border_96x200_r3": ("random_96x200", 3, 0),
+    "zero_border_70x129_r0": ((70, 129), 0, 0),
+    "zero_border_70x129_r5": ((70, 129), 5, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(_PALLAS_FAST_CASES))
+def test_plain_fast_nms_matches_pallas_interior(case):
+    """The kernel's plain version vs the Pallas kernel (interpret mode),
+    up to f32 ties inside an NMS window (the tie rule of
+    tests/test_pallas_fast.py, over the (2r+1)^2 window). The interior
+    case: equal at least 16 px from the border. The zero-border cases: at
+    every pixel, border included, the plain version of the input
+    zero-padded by 3 + r and cropped back: the semantics of the CUDA
+    kernel, which reads pixels outside the image as 0 like the Pallas
+    kernel's padding."""
+    image, r, b = _PALLAS_FAST_CASES[case]
+    img = (_images()[image] if isinstance(image, str)
+           else np.random.default_rng(11).random(image, np.float32))
+    p = 0 if b else 3 + r
+    out = n(fast_nms.fast_nms_score_plain(
+        torch.nn.functional.pad(t(img)[None], (p, p, p, p)), THR, r))[0]
+    out = out[p:out.shape[0] - p, p:out.shape[1] - p]
+    ref = np.asarray(pfast.fast_nms_score(jnp.asarray(img), THR, r,
                                           interpret=True))
-    b = 16
-    ri, oi = ref[b:-b, b:-b], out[b:-b, b:-b]
+    H, W = img.shape
+    ri, oi = ref[b:H - b, b:W - b], out[b:H - b, b:W - b]
     yy, xx = np.where(ri != oi)
-    for y, x in zip(yy, xx):
-        v = max(ri[y, x], oi[y, x])
-        win_r = ref[b + y - 3:b + y + 4, b + x - 3:b + x + 4]
-        win_o = out[b + y - 3:b + y + 4, b + x - 3:b + x + 4]
-        assert np.min(np.abs(win_r - v)) < 1e-5
-        assert np.min(np.abs(win_o - v)) < 1e-5
+    for y, x in zip(yy + b, xx + b):
+        v = max(ref[y, x], out[y, x])
+        win = (slice(max(0, y - r), y + r + 1),
+               slice(max(0, x - r), x + r + 1))
+        assert np.min(np.abs(ref[win] - v)) < 1e-5
+        assert np.min(np.abs(out[win] - v)) < 1e-5
     assert (oi > 0).sum() > 20
 
 

@@ -112,16 +112,28 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 @pytest.mark.gpu
 def test_kernels_equal_plain_on_the_card():
     """Run on a CUDA card (chip_smoke.py drives the same checks at the
-    main path's shapes): FAST+NMS equal to plain away from the border,
-    2-NN bit-exact for every xy_mode, also at ragged shapes."""
+    main path's shapes): FAST+NMS equal to plain away from the border, and
+    at every pixel to the plain version of the zero-padded input at
+    ragged shapes and every radius 0..5, radius 6 and a negative threshold
+    refused; 2-NN bit-exact for every xy_mode, also at ragged shapes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    import chip_smoke
+
     rng = np.random.default_rng(1)
     imgs = torch.from_numpy(np.stack([textured_image(rng, 96, 200)
                                       for _ in range(2)])).cuda()
     out = fast_nms.fast_nms_score(imgs, 12.0 / 255.0, 3)
     ref = fast_nms.fast_nms_score_plain(imgs, 12.0 / 255.0, 3)
     assert torch.equal(out[:, 16:-16, 16:-16], ref[:, 16:-16, 16:-16])
+    _, (_, ties) = chip_smoke.check_fast_nms_padded(
+        torch, fast_nms, rng, (imgs[:1].contiguous(), imgs), 12.0 / 255.0,
+        torch.device("cuda"), scene_min_corners=10)
+    assert ties == 0
+    with pytest.raises(ValueError):
+        fast_nms.fast_nms_score(imgs, 12.0 / 255.0, fast_nms.MAX_RADIUS + 1)
+    with pytest.raises(ValueError):
+        fast_nms.fast_nms_score(imgs, -12.0 / 255.0, 3)
     n1, n2 = 300, 500
     d1 = torch.from_numpy(rng.integers(-2**31, 2**31, (n1, 8),
                                        dtype=np.int64).astype(np.int32))
@@ -138,8 +150,6 @@ def test_kernels_equal_plain_on_the_card():
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w)
     # K2a at chip_smoke.py's ragged shapes
-    import chip_smoke
-
     chip_smoke.check_knn2_ragged(torch, knn2, chip_smoke.knn2_ragged_cases(
         torch, rng, torch.device("cuda")))
     # float 2-NN (K2b): the tolerance of tests/test_torch_matching.py
