@@ -37,7 +37,16 @@ Phases (any failure exits non-zero):
      warm run, timed runs, the float 2-NN kernel launched twice and no
      other, accuracy bars, the CPU path's slots agree with the card's;
   4c. SURF/SURF + GMBSOF, one run: the float 2-NN kernel twice, accuracy
-     bars.
+     bars;
+  4d. the pose menu at the flagship config (``pose_menu``): AutoTh,
+     Halign, stereo BA (20 iterations) and the Kneip polish, each with
+     explicit seeded sample streams (``pose_streams``): warm run, timed
+     runs, K1 and K2a twice each, accuracy bars (Halign: the JAX
+     package's 3 / 10 deg, whichever branch decided), then the pose stage
+     again on the CPU from the card's correspondences and the same
+     streams (``check_pose_card_vs_cpu``); ``bundle_adjust`` and the
+     eigensolver's Newton loop on the card under
+     ``torch.cuda.set_sync_debug_mode("error")`` (``check_no_host_sync``).
 
 Prints a JSON ``kernels`` line, one JSON ``step`` line per path, the
 card's name and power limit, and as its last line
@@ -48,6 +57,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import subprocess
@@ -62,6 +72,13 @@ TIMED_RUNS = 20
 # accuracy bars against the planted pose (tests/test_pipeline.py:88-89)
 MAX_ROT_DEG, MAX_TANG_DEG = 1.0, 5.0
 MIN_CORR, MIN_INLIERS = 300, 200
+# phase 4d: timed runs per pose branch; card vs CPU on the pose stage
+# (tests/test_torch_pipeline.py's _check: 0.1 deg, 0.5 deg), inlier slots,
+# AutoTh's threshold
+POSE_TIMED_RUNS = 5
+POSE_ROT_DEG, POSE_TANG_DEG = 0.1, 0.5
+POSE_INLIER_AGREE = 0.99
+AUTOTH_TH_RTOL = 1e-4
 # published H100 SXM peaks (NVIDIA H100 datasheet; CUDA C++
 # Programming Guide throughput table, compute capability 9.0)
 HBM_BYTES_S = 3.35e12
@@ -257,12 +274,13 @@ def _device_ms(torch, fn, iters=10, tries=3):
 def _profile_step(torch, step):
     """One step under torch.profiler: (device-busy ms = summed device
     time of its kernels and copies, number of device ops, wall ms of the
-    profiled step, which the profiler itself slows)."""
+    profiled step, which the profiler itself slows). Device activity only:
+    the host ops' events would double what ``key_averages`` sorts (~80 us
+    per event on the host), and the device numbers do not need them."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
@@ -639,18 +657,28 @@ def check_knn2_l2_ragged(torch, knn2, cases):
 
 
 def drive_path(torch, kernels, pipe, i1, i2, Kt, dist, gen, truth,
-               expected, timed_runs):
+               expected, timed_runs, streams=None,
+               bars=(MAX_ROT_DEG, MAX_TANG_DEG)):
     """Drive one path: counters from 0, one (warm) run, counters read
     back and checked against `expected`, the pose held to the accuracy
-    bars against `truth` (R, t); then `timed_runs` timed runs, the stage
-    split, peak memory and one profiled step. Returns (first run's (corr,
-    pose), step record, failures)."""
+    `bars` (rotation, translation direction, deg) against `truth` (R, t);
+    then `timed_runs` timed runs, the stage split, peak memory and one
+    profiled step. `streams`: explicit sample streams for ``run`` (else
+    `gen` draws them). Returns (first run's (corr, pose), step record,
+    failures)."""
     from matchinglib_poselib_torch.utils.profiling import HostSyncs
+
+    streams = streams or {}
+
+    def run():
+        return pipe.run(i1, i2, Kt, Kt, dist, dist, gen, **streams)
 
     kernels.reset_launch_counts()
     syncs0 = HostSyncs.count
-    corr, pose = pipe.run(i1, i2, Kt, Kt, dist, dist, gen)
+    t0 = time.perf_counter()
+    corr, pose = run()
     torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
     launches = kernels.launch_counts()
     host_syncs = HostSyncs.count - syncs0
     failures = [f"{name} launched {launches[name]} times on the path "
@@ -666,14 +694,14 @@ def drive_path(torch, kernels, pipe, i1, i2, Kt, dist, gen, truth,
     if pose.R.shape != (3, 3) or corr.mask.shape != (
             pipe.det_cfg.max_keypoints,):
         failures.append("unexpected output shapes")
-    if rot_err >= MAX_ROT_DEG or t_err >= MAX_TANG_DEG:
+    if rot_err >= bars[0] or t_err >= bars[1]:
         failures.append(f"pose off the planted pose: rot {rot_err:.4f} deg, "
                         f"t {t_err:.4f} deg")
     if n_corr < MIN_CORR or n_inl < MIN_INLIERS:
         failures.append(f"too few correspondences/inliers: {n_corr}/{n_inl}")
     record = {"launches": launches, "host_syncs_per_pair": host_syncs,
               "n_corr": n_corr, "n_inliers": n_inl, "rot_err_deg": rot_err,
-              "t_err_deg": t_err}
+              "t_err_deg": t_err, "warm_s": warm_s}
     if timed_runs:
         # timed runs (the generator stream continues: steady-state steps)
         pipe.timer.reset()
@@ -682,7 +710,7 @@ def drive_path(torch, kernels, pipe, i1, i2, Kt, dist, gen, truth,
         for _ in range(timed_runs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            pipe.run(i1, i2, Kt, Kt, dist, dist, gen)
+            run()
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
         record.update({
@@ -694,8 +722,9 @@ def drive_path(torch, kernels, pipe, i1, i2, Kt, dist, gen, truth,
             "peak_mem_mib": torch.cuda.max_memory_allocated(i1.device)
             / 2**20,
         })
-        busy_ms, device_ops, prof_wall_ms = _profile_step(
-            torch, lambda: pipe.run(i1, i2, Kt, Kt, dist, dist, gen))
+        t0 = time.perf_counter()
+        busy_ms, device_ops, prof_wall_ms = _profile_step(torch, run)
+        record["profiled_s"] = time.perf_counter() - t0
         record["profiled_run"] = {"wall_ms": prof_wall_ms,
                                   "device_busy_ms": busy_ms,
                                   "device_ops": device_ops}
@@ -718,6 +747,143 @@ def cpu_agreement(torch, pipeline, corr, img1, img2, det, desc, match):
                       < 1e-4)[both].float().mean())
     return {"keypoints": kp, "matches": float((gm == cm).float().mean()),
             "partners": partners}
+
+
+def pose_menu(cfg):
+    """Phase 4d's branches: (name, PoseConfig changes, accuracy bars)."""
+    return (
+        ("AutoTh", dict(auto_th=True), (MAX_ROT_DEG, MAX_TANG_DEG)),
+        # the JAX package's own bars for Halign
+        # (tests/test_pose_branches.py:132)
+        ("Halign", dict(use_halign=True), (3.0, 10.0)),
+        ("BA", dict(ba=cfg.BAConfig(enabled=True, iterations=20)),
+         (MAX_ROT_DEG, MAX_TANG_DEG)),
+        ("Kneip", dict(refine=cfg.RefinementConfig(
+            solver=cfg.MinimalSolver.KNEIP)), (MAX_ROT_DEG, MAX_TANG_DEG)),
+    )
+
+
+def pose_streams(torch, robust, pose_cfg, seed):
+    """Seeded sample streams on the CPU for one pose branch, in the shapes
+    ``estimate_pose`` documents (k = 5 for the 5pt solver)."""
+    g = torch.Generator().manual_seed(seed)
+    rb = pose_cfg.robust
+    B, nb = rb.batch_hypotheses, rb.max_batches
+    k = 8 if rb.solver.name == "EIGHT_PT" else 5
+
+    def u(*shape):
+        return torch.rand(shape, generator=g)
+
+    if pose_cfg.use_halign:
+        return {"plane_uniforms": u(pose_cfg.halign.max_planes, nb, B, 4),
+                "uniforms": u(nb, B, k)}
+    degen = u(1, min(B, 64), 4)
+    if pose_cfg.auto_th:
+        return {"uniforms": u(robust.AUTOTH_ROUNDS, nb, B, k),
+                "degen_uniforms": degen}
+    return {"uniforms": u(nb, B, k), "degen_uniforms": degen}
+
+
+def _autoth_on(robust, geo, cfg, corr, K, dist, streams, device):
+    """AutoTh alone on `device` from the pixel correspondences, as
+    ``estimate_pose`` calls it: (adapted threshold, rounds)."""
+    from matchinglib_poselib_torch.config import MAX_PIX_TH, MIN_PIX_TH
+
+    K, dist = K.to(device), dist.to(device)
+    x1 = geo.undistort_oulu(geo.img_to_cam(corr.pts1.to(device), K), dist)
+    x2 = geo.undistort_oulu(geo.img_to_cam(corr.pts2.to(device), K), dist)
+    f_mean = 0.25 * (K[0, 0] + K[1, 1] + K[0, 0] + K[1, 1])
+    th = cfg.robust.threshold_px / f_mean
+    res = robust.estimate_essential_autoth(
+        x1, x2, corr.mask.to(device).float(), corr.quality.to(device),
+        cfg.robust, threshold_sq=th * th, min_threshold=MIN_PIX_TH / f_mean,
+        max_threshold=MAX_PIX_TH / f_mean,
+        uniforms=streams["uniforms"].to(device),
+        degen_uniforms=streams["degen_uniforms"].to(device))
+    return float(res.threshold), int(res.n_rounds)
+
+
+def check_pose_card_vs_cpu(torch, pipeline, corr, pose, K, dist, pose_cfg,
+                           streams):
+    """The pose stage again on the CPU from the card's correspondences and
+    the same streams: rotation within POSE_ROT_DEG, translation direction
+    within POSE_TANG_DEG, inlier masks equal on >= POSE_INLIER_AGREE of
+    the slots, the Halign error code equal; for AutoTh also the adapted
+    threshold within AUTOTH_TH_RTOL and the round count equal. Returns
+    (record, failures)."""
+    from matchinglib_poselib_torch.ops import geometry as geo
+    from matchinglib_poselib_torch.ops import robust
+
+    cpu = pipeline.estimate_pose(
+        corr.pts1.cpu(), corr.pts2.cpu(), corr.mask.cpu(),
+        corr.quality.cpu(), K.cpu(), K.cpu(), dist.cpu(), dist.cpu(),
+        pose_cfg, **{k: v.cpu() for k, v in streams.items()})
+    rec = {
+        "rot_deg": _rot_deg(pose.R.cpu().numpy(), cpu.R.numpy()),
+        "t_deg": _dir_deg(pose.t.cpu().numpy(), cpu.t.numpy()),
+        "inliers": float((pose.inlier_mask.cpu()
+                          == cpu.inlier_mask).float().mean()),
+        "halign_error_code": [int(pose.halign_error_code),
+                              int(cpu.halign_error_code)],
+    }
+    failures = []
+    if rec["rot_deg"] >= POSE_ROT_DEG or rec["t_deg"] >= POSE_TANG_DEG:
+        failures.append(f"card vs CPU pose: {rec['rot_deg']:.4f} deg, "
+                        f"{rec['t_deg']:.4f} deg")
+    if rec["inliers"] < POSE_INLIER_AGREE:
+        failures.append(f"card vs CPU inlier slots {rec['inliers']:.4f}")
+    if len(set(rec["halign_error_code"])) != 1:
+        failures.append(f"card vs CPU Halign codes "
+                        f"{rec['halign_error_code']}")
+    if pose_cfg.auto_th:
+        card_th = _autoth_on(robust, geo, pose_cfg, corr, K, dist, streams,
+                             K.device)
+        cpu_th = _autoth_on(robust, geo, pose_cfg, corr, K, dist, streams,
+                            torch.device("cpu"))
+        rec["autoth_threshold"] = [card_th[0], cpu_th[0]]
+        rec["autoth_rounds"] = [card_th[1], cpu_th[1]]
+        if (abs(card_th[0] - cpu_th[0]) > AUTOTH_TH_RTOL * abs(cpu_th[0])
+                or card_th[1] != cpu_th[1]):
+            failures.append(f"card vs CPU AutoTh threshold / rounds "
+                            f"{card_th} vs {cpu_th}")
+    return rec, failures
+
+
+def check_no_host_sync(torch, name, fn):
+    """Run `fn` on the card under ``set_sync_debug_mode("error")``: a host
+    read inside raises. Returns a list with the failure, or empty."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        return [f"{name}: host sync on the card: {str(e).splitlines()[0]}"]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return []
+
+
+def sync_free_checks(torch, corr, pose, K, dist):
+    """``bundle_adjust`` (through ``refine_stereo_ba``, as the BA branch
+    calls it) and the eigensolver's Newton loop on the card's data, each
+    under ``check_no_host_sync``."""
+    from matchinglib_poselib_torch import config as cfg
+    from matchinglib_poselib_torch.ops import ba, eigensolver
+    from matchinglib_poselib_torch.ops import geometry as geo
+
+    x1 = geo.undistort_oulu(geo.img_to_cam(corr.pts1, K), dist)
+    x2 = geo.undistort_oulu(geo.img_to_cam(corr.pts2, K), dist)
+    inl = pose.inlier_mask & pose.valid3d
+    eye = torch.eye(3, device=K.device)
+    f_mean = 0.5 * (K[0, 0] + K[1, 1])
+    return (
+        check_no_host_sync(torch, "bundle_adjust", lambda: ba.refine_stereo_ba(
+            pose.R, pose.t, x1, x2, pose.points3d, inl.float(), eye, eye,
+            cfg.BAConfig(enabled=True), huber_delta=1.0 / f_mean))
+        + check_no_host_sync(
+            torch, "solve_eigensolver", lambda: eigensolver.solve_eigensolver(
+                x1, x2, inl.float(), R0=pose.R)))
 
 
 def _bound(bytes_moved, time_ops):
@@ -892,6 +1058,36 @@ def main(argv=None) -> int:
     _, rec = path("SURF/SURF", surf, {"knn2_l2": 2, "knn2": 0,
                                       "fast_nms": 0}, 0)
     steps.append(("SURF / 2048 kp / M-SURF / GMBSOF / 96x12 5pt USAC", rec))
+    # 4d. the pose menu at the flagship config, each branch with explicit
+    # streams, then card vs CPU on the pose stage
+    from matchinglib_poselib_torch.ops import robust
+
+    for b_i, (b_name, change, bars) in enumerate(pose_menu(cfg)):
+        t_phase = time.perf_counter()
+        b_cfg = dataclasses.replace(pose_cfg, **change)
+        streams = pose_streams(torch, robust, b_cfg, args.seed + 10 + b_i)
+        pipe = pipeline.StereoPipeline(det, desc, match, b_cfg)
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        (c, p), rec, fails = drive_path(
+            torch, kernels, pipe, i1, i2, Kt, dist, gen, (R_true, t_true),
+            {"fast_nms": 2, "knn2": 2}, POSE_TIMED_RUNS, streams=streams,
+            bars=bars)
+        failures.extend(f"{b_name}: {f}" for f in fails)
+        rec["halign_error_code"] = int(p.halign_error_code)
+        rec["pose_ms"] = rec["stages_ms"]["robEstimationAndRef"]
+        t0 = time.perf_counter()
+        rec["card_vs_cpu_pose"], fails = check_pose_card_vs_cpu(
+            torch, pipeline, c, p, Kt, dist, b_cfg, streams)
+        rec["cpu_check_s"] = time.perf_counter() - t0
+        failures.extend(f"{b_name}: {f}" for f in fails)
+        if b_name == "BA":
+            t0 = time.perf_counter()
+            failures.extend(sync_free_checks(torch, c, p, Kt, dist))
+            rec["sync_checks_s"] = time.perf_counter() - t0
+        # wall seconds of this branch's phase, checks included
+        rec["phase_s"] = time.perf_counter() - t_phase
+        steps.append((f"FAST t=12 / 2048 kp / ORB / GMBSOF / 96x12 5pt USAC"
+                      f" / pose {b_name}", rec))
     for c_name, rec in steps:
         agree = rec.get("cpu_agree")
         if agree and min(agree.values()) < 0.99:

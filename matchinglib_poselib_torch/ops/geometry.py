@@ -95,6 +95,18 @@ def undistort_oulu(
     return xy
 
 
+def distort_oulu(pts: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
+    """Forward Oulu distortion of normalized coords (inverse of
+    ``undistort_oulu``). pts: (..., 2); dist: (..., 5)."""
+    k1, k2, p1, p2, k3 = (dist[..., i] for i in range(5))
+    x, y = pts[..., 0], pts[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+    xd = x * radial + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+    yd = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+    return torch.stack([xd, yd], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # epipolar residuals
 # ---------------------------------------------------------------------------
@@ -263,6 +275,18 @@ def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     vhi = torch.gather(xs, -1, hi[..., None])[..., 0]
     med = 0.5 * (vlo + vhi)
     return torch.where(n > 0, med, torch.zeros_like(med))
+
+
+def masked_stats(x: torch.Tensor, mask: torch.Tensor):
+    """(median, mean, std, MAD) over the masked entries of the last axis
+    (the reference's statVals, pose_helper.cpp:358 getStatsfromVec)."""
+    m = mask.to(x.dtype)
+    n = torch.clamp(torch.sum(m, dim=-1), min=1.0)
+    mean = torch.sum(x * m, dim=-1) / n
+    var = torch.sum(m * (x - mean[..., None]) ** 2, dim=-1) / n
+    med = masked_median(x, mask)
+    mad = masked_median(torch.abs(x - med[..., None]), mask)
+    return med, mean, torch.sqrt(var), mad
 
 
 # ---------------------------------------------------------------------------

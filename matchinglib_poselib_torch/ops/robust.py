@@ -1,11 +1,13 @@
-"""Batched robust essential-matrix estimation (port of ``ops/robust.py``,
-default path).
+"""Batched robust essential-matrix estimation (port of ``ops/robust.py``:
+the default path and AutoTh).
 
 USAC/PROSAC hypothesis batches of the five-point solver scored densely,
 with the half-uniform mixed pool, zero-inlier threshold inflation, the
 adaptive confidence stop bounded by the SPRT prior, LO re-fits with the
 support-guarded projection, and the degeneracy check (homography,
-rotation-only and no-motion families on the E-inliers).
+rotation-only and no-motion families on the E-inliers);
+``estimate_essential_autoth`` adapts the threshold between rounds of it
+(AutoThEpi).
 
 Randomness: every sampled uniform is an explicit tensor. ``ransac`` takes
 ``uniforms`` of shape (max_batches, B, k) — batch i uses uniforms[i], the
@@ -17,11 +19,14 @@ Python loops that read their exit flag on the host once per iteration
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, NamedTuple
 
 import torch
 
 from matchinglib_poselib_torch.config import (
+    MIN_PIX_TH,
+    PIX_MIN_GOOD_TH,
     MinimalSolver,
     PoseEstimator,
     RobustConfig,
@@ -500,3 +505,104 @@ def estimate_essential_robust(
                                    generator=generator)
     return res, degen
 
+
+# ---------------------------------------------------------------------------
+# AutoThEpi: automatic inlier-threshold adaptation
+# ---------------------------------------------------------------------------
+
+
+# AutoTh's rounds (the JAX package's default, which estimate_pose uses)
+AUTOTH_ROUNDS = 3
+
+
+class AutoThResult(NamedTuple):
+    result: RobustResult
+    degen: DegeneracyResult | None
+    threshold: torch.Tensor  # adapted threshold (normalized distance)
+    n_rounds: torch.Tensor  # rounds used up to the convergence latch
+
+
+def estimate_essential_autoth(
+    x1: torch.Tensor,
+    x2: torch.Tensor,
+    mask: torch.Tensor,
+    quality: torch.Tensor | None,
+    cfg: RobustConfig,
+    threshold_sq,
+    min_threshold,
+    max_threshold,
+    rounds: int = AUTOTH_ROUNDS,
+    uniforms: torch.Tensor | None = None,
+    degen_uniforms: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+    tables: solvers.SolverTables | None = None,
+) -> AutoThResult:
+    """Robust E with automatic threshold adaptation (AutoThEpi,
+    pose_estim.cpp:82-300 estimateEVarTH / estimateThresh). Thresholds are
+    distances in normalized camera units.
+
+    Each round runs the robust engine (no degeneracy check) at the current
+    threshold and re-estimates it from the Sampson distances of all valid
+    correspondences below min(4 th, 5 px): median + 3 * 1.4826 MAD when
+    mean / median is outside [0.5, 2], else mean + 3 std; a runaway
+    estimate (>= 5 th and >= 4 PIX_MIN_GOOD_TH) doubles th instead (or
+    resets it to the minimum past half the maximum), clamped to
+    [min_threshold, max_threshold]. The round where th moves by < 10% or
+    the inlier ratio reaches 0.67 latches the result; the JAX package's
+    later rounds change nothing, so the loop stops there (one host read
+    per round).
+
+    uniforms: (rounds, max_batches, B, k), round r's E batches (the JAX
+    package's r-th ``split`` of the key); degen_uniforms: (1, min(B, 64),
+    4) for the degeneracy check on the latched result (its
+    ``fold_in(key, 777)`` of the key left after all rounds). Either, when
+    None, comes from `generator`: the rounds' streams first, in order.
+    """
+    dt, dev = x1.dtype, x1.device
+    th = torch.sqrt(torch.as_tensor(threshold_sq, dtype=dt, device=dev))
+    min_th = torch.as_tensor(min_threshold, dtype=dt, device=dev)
+    max_th = torch.as_tensor(max_threshold, dtype=dt, device=dev)
+    # the 5 px trim ceiling and the 4 PIX_MIN_GOOD_TH runaway floor in
+    # camera units
+    px_unit = min_th / MIN_PIX_TH
+    trim_ceiling = 5.0 * px_unit
+    runaway_floor = 4.0 * PIX_MIN_GOOD_TH * px_unit
+    if uniforms is None:
+        k = 8 if cfg.solver == MinimalSolver.EIGHT_PT else 5
+        uniforms = draw_uniforms(
+            generator, (rounds, cfg.max_batches, cfg.batch_hypotheses, k),
+            dev)
+    round_cfg = dataclasses.replace(cfg, check_degeneracy=False)
+
+    maskb = mask.to(torch.bool)
+    for r in range(rounds):
+        res, _ = estimate_essential_robust(
+            x1, x2, mask, quality, round_cfg, threshold_sq=th * th,
+            uniforms=uniforms[r], tables=tables)
+        err = torch.sqrt(torch.clamp(geo.sampson_error(res.model, x1, x2),
+                                     min=0.0))
+        max_inl_dist = torch.minimum(4.0 * th, trim_ceiling)
+        med, mean, std, mad = geo.masked_stats(err,
+                                               maskb & (err < max_inl_dist))
+        ratio = mean / torch.clamp(med, min=1e-12)
+        th_tmp = torch.where((ratio > 2.0) | (ratio < 0.5),
+                             med + 3.0 * (1.4826 * mad), mean + 3.0 * std)
+        sane = (th_tmp < 5.0 * th) | (th_tmp < runaway_floor)
+        fallback = torch.where(th < 0.5 * max_th, 2.0 * th, min_th)
+        th_new = torch.clamp(torch.where(sane, th_tmp, fallback), min_th,
+                             max_th)
+        moved = (th / torch.clamp(th_new, min=1e-12) < 0.9) | (
+            th_new / torch.clamp(th, min=1e-12) < 0.9)
+        converged = ~moved | (res.inlier_ratio >= 0.67)
+        th = th_new
+        if HostSyncs.read(converged):
+            break
+    n_rounds = torch.full((), r + 1, dtype=torch.int32, device=dev)
+
+    degen = None
+    if cfg.check_degeneracy:
+        degen = analyze_degeneracy(res, x1, x2, mask, cfg,
+                                   uniforms=degen_uniforms,
+                                   generator=generator)
+    return AutoThResult(result=res, degen=degen, threshold=th,
+                        n_rounds=n_rounds)

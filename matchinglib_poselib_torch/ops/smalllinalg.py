@@ -72,8 +72,8 @@ def eigh_sym3x3(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     v1 = v1 / n1[..., None]
 
     def complete_frame(a):
-        ex = torch.tensor([1.0, 0.0, 0.0], dtype=a.dtype, device=a.device)
-        ey = torch.tensor([0.0, 1.0, 0.0], dtype=a.dtype, device=a.device)
+        # rows of eye, made on the device (no host-to-device copy)
+        ex, ey = eye[0], eye[1]
         e = torch.where(torch.abs(a[..., 0:1]) < 0.9, ex.expand(a.shape),
                         ey.expand(a.shape))
         b = _cross(a, e)

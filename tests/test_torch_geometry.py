@@ -179,3 +179,27 @@ def test_statistics_and_pose_comparison():
     a = rng.uniform(-10, 10, 64).astype(np.float32)
     np.testing.assert_array_equal(
         n(tg.floor_mod(t(a), 2 * np.pi)), np.asarray(jnp.mod(a, 2 * np.pi)))
+
+
+def test_masked_stats_and_distort_oulu_match_jax():
+    """masked_stats (AutoTh's residual statistics) and the forward Oulu
+    distortion (BA's projection), at rtol 1e-5."""
+    rng = np.random.default_rng(4)
+    x = np.abs(rng.normal(size=(4, 53))).astype(np.float32)
+    m = rng.random((4, 53)) > 0.3
+    m[0] = False  # an empty row: zeros on both sides
+    for o, r in zip(tg.masked_stats(t(x), torch.from_numpy(m)),
+                    jg.masked_stats(jnp.asarray(x), jnp.asarray(m))):
+        np.testing.assert_allclose(n(o), np.asarray(r), rtol=1e-5,
+                                   atol=1e-7)
+    pts = rng.uniform(-0.6, 0.6, (7, 3, 2)).astype(np.float32)
+    dist = (rng.normal(size=(3, 5)) * [0.1, 0.02, 0.002, 0.002, 0.005]
+            ).astype(np.float32)
+    np.testing.assert_allclose(
+        n(tg.distort_oulu(t(pts), t(dist))),
+        np.asarray(jg.distort_oulu(jnp.asarray(pts), jnp.asarray(dist))),
+        rtol=1e-5, atol=1e-7)
+    # undistort_oulu inverts it
+    back = tg.undistort_oulu(tg.distort_oulu(t(pts[:, 0]), t(dist[0])),
+                             t(dist[0]))
+    np.testing.assert_allclose(n(back), pts[:, 0], atol=1e-5)

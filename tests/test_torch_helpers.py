@@ -57,11 +57,52 @@ def jax_degen_uniforms(key, B: int):
     return jax_uniforms(kd, 1, min(B, 64), 4)
 
 
+def jax_autoth_uniforms(key, rounds: int, batches: int, B: int, k: int):
+    """AutoTh's streams as ``estimate_essential_autoth`` draws them: round
+    r samples under the r-th ``split`` of the key, the degeneracy check
+    under ``fold_in(key_left, 777)``. -> ((rounds, batches, B, k),
+    (1, min(B, 64), 4))."""
+    rounds_u = []
+    for _ in range(rounds):
+        key, sub = jax.random.split(key)
+        rounds_u.append(jax_uniforms(sub, batches, B, k))
+    return torch.stack(rounds_u), jax_degen_uniforms(key, B)
+
+
+def jax_plane_uniforms(key, planes: int, batches: int, B: int):
+    """Plane peeling's streams (``estimate_multiple_homographies``): plane
+    r samples under the r-th ``split`` of the key. -> (planes, batches,
+    B, 4)."""
+    out = []
+    for _ in range(planes):
+        key, sub = jax.random.split(key)
+        out.append(jax_uniforms(sub, batches, B, 4))
+    return torch.stack(out)
+
+
+def jax_halign_uniforms(key, planes: int, batches: int, B: int, k: int):
+    """``estimate_pose``'s Halign streams: ``key, key_fb = split(key)``;
+    the planes under ``key``, the robust-E fallback under ``key_fb``.
+    -> (plane_uniforms, fallback uniforms (batches, B, k))."""
+    key, key_fb = jax.random.split(key)
+    return (jax_plane_uniforms(key, planes, batches, B),
+            jax_uniforms(key_fb, batches, B, k))
+
+
 def rot_angle_deg(Ra, Rb):
     """Angle of Ra^T Rb in degrees (float64)."""
     dR = np.asarray(Ra, np.float64).T @ np.asarray(Rb, np.float64)
     c = np.clip((np.trace(dR) - 1.0) / 2.0, -1.0, 1.0)
     return float(np.degrees(np.arccos(c)))
+
+
+def rot_chordal_deg(Ra, Rb):
+    """Angle of Ra^T Rb in degrees from the chordal distance |Ra - Rb|_F =
+    2 sqrt(2) sin(angle / 2): unlike the trace form it does not saturate
+    for f32 rotations orthonormal only to ~1e-7 (the trace form's floor is
+    ~0.05-0.1 deg there)."""
+    d = np.linalg.norm(np.asarray(Ra, np.float64) - np.asarray(Rb, np.float64))
+    return float(np.degrees(2.0 * np.arcsin(min(1.0, d / (2.0 * np.sqrt(2.0))))))
 
 
 def dir_angle_deg(a, b):

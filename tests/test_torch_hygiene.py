@@ -20,14 +20,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_port_runs_without_importing_jax():
     """A fresh interpreter imports the port and chip_smoke, runs the plain
-    pipeline at the FAST/ORB and the SIFT/SIFT + GMS configs, and never
+    pipeline at the FAST/ORB and the SIFT/SIFT + GMS configs and one
+    estimate_pose per pose branch (AutoTh, Halign, BA, Kneip), and never
     imports jax."""
     code = textwrap.dedent("""
-        import sys
+        import dataclasses, sys
         import numpy as np, torch
         import chip_smoke
         from matchinglib_poselib_torch import config as c
         from matchinglib_poselib_torch.models import pipeline
+        from matchinglib_poselib_torch.ops import ba, eigensolver
+        from matchinglib_poselib_torch.ops import homography_pose, robust
         img1, img2, K, _, _ = chip_smoke.render_scene(0, 192, 96)
         pipe = pipeline.StereoPipeline(
             c.DetectorConfig(max_keypoints=64, fast_threshold=12.0,
@@ -51,6 +54,16 @@ def test_port_runs_without_importing_jax():
                               torch.Generator().manual_seed(0))
         assert corr.kps1.xy.shape == (64, 2)
         assert bool(torch.isfinite(pose.R).all())
+        base = c.PoseConfig(robust=c.RobustConfig(batch_hypotheses=8,
+                                                  max_batches=2))
+        Kt = torch.tensor(K)
+        for i, (name, change, _) in enumerate(chip_smoke.pose_menu(c)):
+            cfg = dataclasses.replace(base, **change)
+            pose = pipeline.estimate_pose(
+                corr.pts1, corr.pts2, corr.mask, corr.quality, Kt, Kt,
+                torch.zeros(5), torch.zeros(5), cfg,
+                **chip_smoke.pose_streams(torch, robust, cfg, i))
+            assert bool(torch.isfinite(pose.R).all()), name
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m.startswith("matchinglib_poselib_tpu")]
         assert not bad, bad
@@ -175,3 +188,40 @@ def test_kernels_equal_plain_on_the_card():
     chip_smoke.check_knn2_l2_ragged(
         torch, knn2,
         chip_smoke.knn2_l2_ragged_cases(torch, rng, torch.device("cuda")))
+
+
+@pytest.mark.gpu
+def test_pose_branches_card_vs_cpu():
+    """chip_smoke.py phase 4d's card-vs-CPU pose check at a small size:
+    each pose branch on the card, then the pose stage again on the CPU
+    from the card's correspondences and the same streams; bundle_adjust
+    and the eigensolver's Newton loop free of host syncs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+
+    import chip_smoke
+    from matchinglib_poselib_torch import config as c
+    from matchinglib_poselib_torch.models import pipeline
+    from matchinglib_poselib_torch.ops import robust
+
+    img1, img2, K, _, _ = chip_smoke.render_scene(0, 480, 240)
+    dev = torch.device("cuda")
+    Kt = torch.from_numpy(K).to(dev)
+    dist = torch.zeros(5, device=dev)
+    base = c.PoseConfig(robust=c.RobustConfig(batch_hypotheses=32,
+                                              max_batches=4))
+    for i, (name, change, _) in enumerate(chip_smoke.pose_menu(c)):
+        cfg = dataclasses.replace(base, **change)
+        streams = chip_smoke.pose_streams(torch, robust, cfg, i)
+        pipe = pipeline.StereoPipeline(
+            c.DetectorConfig(max_keypoints=512, fast_threshold=12.0),
+            pose_cfg=cfg)
+        corr, pose = pipe.run(img1, img2, K, K, np.zeros(5), np.zeros(5),
+                              **streams)
+        _, fails = chip_smoke.check_pose_card_vs_cpu(
+            torch, pipeline, corr, pose, Kt, dist, cfg, streams)
+        assert not fails, (name, fails)
+        if name == "BA":
+            assert not chip_smoke.sync_free_checks(torch, corr, pose, Kt,
+                                                   dist)
