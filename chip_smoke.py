@@ -46,7 +46,23 @@ Phases (any failure exits non-zero):
      again on the CPU from the card's correspondences and the same
      streams (``check_pose_card_vs_cpu``); ``bundle_adjust`` and the
      eigensolver's Newton loop on the card under
-     ``torch.cuda.set_sync_debug_mode("error")`` (``check_no_host_sync``).
+     ``torch.cuda.set_sync_debug_mode("error")`` (``check_no_host_sync``);
+  6. the stream (``stream_phase``): ``StereoRefine`` at the
+     ``poselib-test --stereoRef`` defaults (``stereo_ref_config``: a pool
+     of 30,000) over a seeded 10-frame sequence of the scene
+     (``render_sequence``; frame 7 a bad pair: its right image shows other
+     textures), fed by the flagship front
+     end with seeded streams (``SeededStreams``): frame 1 init, every good
+     frame refined or robust, the bad one skipped (pose unchanged) or
+     robust, every accepted pose within the accuracy bars, the pool past
+     1,000, K1 and K2a 2 launches each per frame; frames 1-6 again on the
+     CPU from the card's correspondences (same states, pools within 1%,
+     0.1 / 0.5 deg); every frame again at a pool of 1,024 on the card and
+     on the CPU, which must fill the pool (eviction, the robust cadence's
+     full-pool branch) and agree as frames 1-6 do (``stream_full_pool``);
+     the checkpoint after frame 4 resumed on the card
+     (same states, R and t within 1e-6); one refined and one robust frame
+     profiled.
 
 Prints a JSON ``kernels`` line, one JSON ``step`` line per path, the
 card's name and power limit, and as its last line
@@ -191,26 +207,60 @@ def _render(planes, K, R, t, width, height, rng, noise, ss=2):
     return np.clip(img, 0.0, 1.0).astype(np.float32)
 
 
-def render_scene(seed: int = 0, width: int = WIDTH, height: int = HEIGHT,
-                 noise: float = 0.005):
-    """Seeded stereo pair with a planted pose.
-
-    Returns (img1, img2, K, R, t): float32 images (H, W) in [0, 1], the
-    shared intrinsics (K_FULL scaled to the size), and the planted
-    relative pose X2 = R X1 + t with a KITTI-like 0.54 m baseline along
-    -x, a small forward part and a ~1.5 deg rotation.
-    """
+def _scene_setup(seed: int, width: int, height: int):
+    """The seeded scene every renderer shares: (rng, K, R, t, planes),
+    with K_FULL scaled to the size and the planted rig X2 = R X1 + t (a
+    KITTI-like 0.54 m baseline along -x, a small forward part, a ~1.5 deg
+    rotation); `rng` continues into the pixel noise."""
     rng = np.random.default_rng(seed)
     K = K_FULL.copy()
     K[0] *= width / WIDTH
     K[1] *= height / HEIGHT
     R = _rot((0.15, 1.0, 0.1), 1.5)
     t = np.array([-0.54, 0.01, 0.04])
-    planes = _planes(rng)
+    return rng, K, R, t, _planes(rng)
+
+
+def render_scene(seed: int = 0, width: int = WIDTH, height: int = HEIGHT,
+                 noise: float = 0.005):
+    """Seeded stereo pair with a planted pose.
+
+    Returns (img1, img2, K, R, t): float32 images (H, W) in [0, 1], the
+    shared intrinsics, and the planted relative pose X2 = R X1 + t.
+    """
+    rng, K, R, t, planes = _scene_setup(seed, width, height)
     img1 = _render(planes, K, np.eye(3), np.zeros(3), width, height, rng,
                    noise)
     img2 = _render(planes, K, R, t, width, height, rng, noise)
     return img1, img2, K.astype(np.float32), R, t
+
+
+def render_sequence(seed: int = 0, frames: int = 10, width: int = WIDTH,
+                    height: int = HEIGHT, noise: float = 0.005):
+    """Seeded stereo sequence of the same scene and rig: camera 1 moves
+    0.25 m forward and yaws 0.2 deg per frame, the rig's relative pose
+    stays the planted one, the pixel noise is fresh per frame, one sample
+    per pixel. Frame STREAM_BAD_FRAME (1-based) is a bad pair: its right
+    image shows the same planes with other textures (a swapped camera
+    feed), so its matches fit no rigid motion. (Another frame's right
+    image of this static scene would not do: with the left image of a
+    frame 1.25 m on it is a consistent two-view pair, and the stream
+    rightly reinitializes on it.) Returns ([(img1, img2), ...], K, R,
+    t)."""
+    rng, K, R, t, planes = _scene_setup(seed, width, height)
+    pairs = []
+    for f in range(frames):
+        R1 = _rot((0.0, 1.0, 0.0), 0.2 * f)
+        t1 = -R1 @ np.array([0.0, 0.0, 0.25 * f])
+        img1 = _render(planes, K, R1, t1, width, height, rng, noise, ss=1)
+        img2 = _render(planes, K, R @ R1, R @ t1 + t, width, height, rng,
+                       noise, ss=1)
+        if f + 1 == STREAM_BAD_FRAME:
+            other = np.random.default_rng(seed + 1)
+            img2 = _render(_planes(other), K, R @ R1, R @ t1 + t, width,
+                           height, other, noise, ss=1)
+        pairs.append((img1, img2))
+    return pairs, K.astype(np.float32), R, t
 
 
 # ---------------------------------------------------------------------------
@@ -767,21 +817,20 @@ def pose_streams(torch, robust, pose_cfg, seed):
     """Seeded sample streams on the CPU for one pose branch, in the shapes
     ``estimate_pose`` documents (k = 5 for the 5pt solver)."""
     g = torch.Generator().manual_seed(seed)
-    rb = pose_cfg.robust
-    B, nb = rb.batch_hypotheses, rb.max_batches
-    k = 8 if rb.solver.name == "EIGHT_PT" else 5
+    e_shape, d_shape = robust.sample_shapes(pose_cfg.robust)
 
     def u(*shape):
         return torch.rand(shape, generator=g)
 
     if pose_cfg.use_halign:
-        return {"plane_uniforms": u(pose_cfg.halign.max_planes, nb, B, 4),
-                "uniforms": u(nb, B, k)}
-    degen = u(1, min(B, 64), 4)
+        return {"plane_uniforms": u(pose_cfg.halign.max_planes,
+                                    *e_shape[:2], 4),
+                "uniforms": u(*e_shape)}
+    degen = u(*d_shape)
     if pose_cfg.auto_th:
-        return {"uniforms": u(robust.AUTOTH_ROUNDS, nb, B, k),
+        return {"uniforms": u(robust.AUTOTH_ROUNDS, *e_shape),
                 "degen_uniforms": degen}
-    return {"uniforms": u(nb, B, k), "degen_uniforms": degen}
+    return {"uniforms": u(*e_shape), "degen_uniforms": degen}
 
 
 def _autoth_on(robust, geo, cfg, corr, K, dist, streams, device):
@@ -884,6 +933,345 @@ def sync_free_checks(torch, corr, pose, K, dist):
         + check_no_host_sync(
             torch, "solve_eigensolver", lambda: eigensolver.solve_eigensolver(
                 x1, x2, inl.float(), R0=pose.R)))
+
+
+# phase 6, the stream: frames, the bad pair (1-based), frames rerun on the
+# CPU, the checkpoint's frame, the pool size to pass, card vs CPU bars
+STREAM_FRAMES = 10
+STREAM_BAD_FRAME = 7
+STREAM_CPU_FRAMES = 6
+STREAM_CKPT_AFTER = 4
+STREAM_MIN_POOL = 1000
+STREAM_POOL_RTOL = 0.01
+STREAM_CKPT_TOL = 1e-6
+# the pool capacity of the rerun that fills it (the CPU tests' size)
+STREAM_FULL_POOL = 1024
+ACCEPTED = ("init", "refined", "robust", "reinit")
+
+
+def stereo_ref_config(cfg):
+    """``poselib-test --stereoRef`` at its default arguments, spelled out
+    (the JAX package's ``apps/common.py``: ``add_pose_options``,
+    ``add_stereo_refine_options``, ``pose_config``,
+    ``stereo_refine_config``): USAC, Nister 5pt, th 0.8 px, the
+    degeneracy check at 0.85, refineRT / refineRT_stereo "22" (8pt IRLS,
+    pseudo-Huber), no BA, a pool of 30,000 with 4096-point refine caps."""
+    pose = cfg.PoseConfig(
+        robust=cfg.RobustConfig(
+            estimator=cfg.PoseEstimator.USAC,
+            solver=cfg.MinimalSolver.NISTER_5PT, threshold_px=0.8,
+            check_degeneracy=True, degen_decision_ratio=0.85),
+        refine=cfg.RefinementConfig(
+            enabled=True, solver=cfg.MinimalSolver.EIGHT_PT,
+            weights=cfg.RefineWeights.PSEUDO_HUBER),
+        ba=cfg.BAConfig(enabled=False, fix_intrinsics=True))
+    return cfg.StereoRefineConfig(
+        max_pool_correspondences=30000, min_pts_distance=3.0,
+        check_pool_pose_robust=3, min_start_agg_inl_rat=0.2,
+        rel_inl_rat_th_last=0.35, rel_inl_rat_th_new=0.2,
+        min_inlier_rat_skip=0.38, rel_min_inlier_rat_skip=0.7,
+        max_skip_pairs=5, min_inlier_ratio_reinit=0.67,
+        min_cont_stable_poses=3, abs_th_ranking_stable=0.075,
+        min_norm_dist_stable=0.5, raise_skip_cnt=0, max_rat_3d_pts_far=0.4,
+        max_dist_3d_pts_z=130.0, use_ransac_few_matches=False,
+        kneip_instead_ba=False, kneip_instead_ba_pool=False,
+        refine_pool=cfg.RefinementConfig(
+            enabled=True, solver=cfg.MinimalSolver.EIGHT_PT,
+            weights=cfg.RefineWeights.PSEUDO_HUBER, refine_max_points=4096,
+            polish_max_points=4096),
+        ba_pool=cfg.BAConfig(enabled=False, fix_intrinsics=True),
+        verbose=0, pose=pose)
+
+
+class SeededStreams:
+    """``StereoRefine``'s ``streams``: (uniforms (max_batches, B, k),
+    degen_uniforms (1, min(B, 64), 4)) per robust call from a CPU
+    generator seeded with `seed`; `skip` calls are drawn and dropped first
+    (a stream resumed after that many calls). ``calls`` counts them."""
+
+    def __init__(self, torch, robust_cfg, seed, skip=0):
+        from matchinglib_poselib_torch.ops import robust
+
+        self.torch = torch
+        self.gen = torch.Generator().manual_seed(seed)
+        self.shapes = robust.sample_shapes(robust_cfg)
+        self.calls = 0
+        for _ in range(skip):
+            self()
+
+    def __call__(self):
+        self.calls += 1
+        return tuple(self.torch.rand(s, generator=self.gen)
+                     for s in self.shapes)
+
+
+def _stats(xs):
+    return ({"mean": float(np.mean(xs)), "median": float(np.median(xs)),
+             "min": float(np.min(xs))} if xs else None)
+
+
+def _feed(sr, c):
+    """One frame into StereoRefine as poselib-test feeds it."""
+    return sr.add_new_correspondences(c[0], c[1], c[2], c[3], desc_dist=c[4])
+
+
+def check_stream(results, per_frame, launches):
+    """Phase 6's checks on the card's run: K1 and K2a 2 launches each per
+    frame, frame 1 init, every good frame refined or robust, the bad frame
+    skipped (pose unchanged) or robust, every accepted pose within the
+    accuracy bars, the pool past STREAM_MIN_POOL. Returns failures."""
+    frames = len(results)
+    failures = [f"{k} launched {launches[k]} times over {frames} frames "
+                f"(expected {n})" for k, n in (("fast_nms", 2 * frames),
+                                               ("knn2", 2 * frames),
+                                               ("knn2_l2", 0))
+                if launches[k] != n]
+    states = [r.state for r in results]
+    if states[0] != "init":
+        failures.append(f"frame 1 is {states[0]}, not init")
+    for f, st in enumerate(states[1:], start=2):
+        if f != STREAM_BAD_FRAME and st not in ("refined", "robust"):
+            failures.append(f"good frame {f} is {st}")
+    bad, before = results[STREAM_BAD_FRAME - 1], results[STREAM_BAD_FRAME - 2]
+    if bad.state not in ("skipped", "robust"):
+        failures.append(f"bad frame {STREAM_BAD_FRAME} is {bad.state}")
+    if bad.state == "skipped" and not (np.array_equal(bad.R, before.R)
+                                       and np.array_equal(bad.t, before.t)):
+        failures.append("the skipped frame changed the pose")
+    for f, rec in enumerate(per_frame, start=1):
+        if rec["state"] in ACCEPTED and (rec["rot_err_deg"] >= MAX_ROT_DEG
+                                         or rec["t_err_deg"] >= MAX_TANG_DEG):
+            failures.append(f"frame {f} ({rec['state']}) off the planted "
+                            f"pose: rot {rec['rot_err_deg']:.4f} t "
+                            f"{rec['t_err_deg']:.4f} deg")
+    if max(r.pool_size for r in results) <= STREAM_MIN_POOL:
+        failures.append(f"pool never passed {STREAM_MIN_POOL}: "
+                        f"{[r.pool_size for r in results]}")
+    return failures
+
+
+def _frame_card_vs_cpu(f, r, r_cpu):
+    """(record, agrees) of frame f's card and CPU results: the same
+    state, pools within STREAM_POOL_RTOL, R and t within POSE_ROT_DEG /
+    POSE_TANG_DEG."""
+    cmp = {"frame": f, "states": [r.state, r_cpu.state],
+           "pool": [r.pool_size, r_cpu.pool_size],
+           "rot_deg": _rot_deg(r.R, r_cpu.R),
+           "t_deg": _dir_deg(r.t, r_cpu.t)}
+    return cmp, (r.state == r_cpu.state
+                 and abs(r.pool_size - r_cpu.pool_size)
+                 <= STREAM_POOL_RTOL * max(r_cpu.pool_size, 1)
+                 and cmp["rot_deg"] < POSE_ROT_DEG
+                 and cmp["t_deg"] < POSE_TANG_DEG)
+
+
+def stream_card_vs_cpu(new_sr, corrs, results):
+    """Frames 1..STREAM_CPU_FRAMES again on the CPU from the card's
+    correspondences with the same streams, held to
+    ``_frame_card_vs_cpu``. Returns (per-frame record, failures)."""
+    cpu_sr = new_sr("cpu")
+    rec, failures = [], []
+    for f in range(1, STREAM_CPU_FRAMES + 1):
+        r_cpu = _feed(cpu_sr, tuple(x.cpu() for x in corrs[f - 1]))
+        cmp, agrees = _frame_card_vs_cpu(f, results[f - 1], r_cpu)
+        rec.append(cmp)
+        if not agrees:
+            failures.append(f"card vs CPU: {cmp}")
+    return rec, failures
+
+
+def stream_full_pool(new_sr, corrs, dev):
+    """Every frame again at a pool of STREAM_FULL_POOL, on the card and on
+    the CPU from the card's correspondences with the same streams, so
+    that the pool fills: eviction of valid rows and the robust cadence's
+    ``max_pool_size_reached`` branch run on the card. The pool must fill;
+    every frame is held to ``_frame_card_vs_cpu``. Returns (record,
+    failures)."""
+    card = new_sr(dev, capacity=STREAM_FULL_POOL)
+    cpu = new_sr("cpu", capacity=STREAM_FULL_POOL)
+    rec = {"capacity": STREAM_FULL_POOL, "full_at_frame": None,
+           "frames": []}
+    failures = []
+    for f, c in enumerate(corrs, start=1):
+        cmp, agrees = _frame_card_vs_cpu(
+            f, _feed(card, c), _feed(cpu, tuple(x.cpu() for x in c)))
+        rec["frames"].append(cmp)
+        if not agrees:
+            failures.append(f"full pool, card vs CPU: {cmp}")
+        if rec["full_at_frame"] is None and card.max_pool_size_reached:
+            rec["full_at_frame"] = f
+    if rec["full_at_frame"] is None:
+        failures.append(f"the pool of {STREAM_FULL_POOL} never filled on "
+                        f"the card: {rec}")
+    return rec, failures
+
+
+def stream_resume(checkpoint, new_sr, ckdir, calls_before, corrs, results,
+                  sr):
+    """The checkpoint written after frame STREAM_CKPT_AFTER, resumed on
+    the card: the rest of the stream in the same states, R and t within
+    STREAM_CKPT_TOL of the uninterrupted run (and whether bit-equal; if
+    not, which checkpoint arrays differ after the last frame). Returns
+    (record, failures)."""
+    f0 = STREAM_CKPT_AFTER + 1
+    res_sr = new_sr(sr.device, skip=calls_before[f0])
+    checkpoint.load_stereo_refine(res_sr, f"{ckdir}/before_{f0}.npz")
+    max_diff, states = 0.0, []
+    for f in range(f0, len(results) + 1):
+        r2, r = _feed(res_sr, corrs[f - 1]), results[f - 1]
+        states.append(r2.state)
+        max_diff = max(max_diff, float(np.abs(r2.R - r.R).max()),
+                       float(np.abs(r2.t - r.t).max()))
+    rec = {"after_frame": STREAM_CKPT_AFTER, "states": states,
+           "max_abs_diff_Rt": max_diff, "bit_equal": max_diff == 0.0}
+    if not rec["bit_equal"]:
+        checkpoint.save_stereo_refine(sr, f"{ckdir}/main_end.npz")
+        checkpoint.save_stereo_refine(res_sr, f"{ckdir}/res_end.npz")
+        with np.load(f"{ckdir}/main_end.npz") as a, \
+                np.load(f"{ckdir}/res_end.npz") as b:
+            rec["differing_arrays"] = [k for k in a.files
+                                       if not np.array_equal(a[k], b[k])]
+    want = [r.state for r in results[f0 - 1:]]
+    failures = ([] if states == want and max_diff <= STREAM_CKPT_TOL
+                else [f"checkpoint resume on the card: {rec} vs {want}"])
+    return rec, failures
+
+
+def profile_stream_frames(torch, checkpoint, new_sr, ckdir, calls_before,
+                          corrs, results, dev):
+    """The first refined and the first robust frame after frame 1, each
+    resumed from the checkpoint before it and run under the profiler:
+    device-busy ms, device ops, wall ms. Returns (record, failures)."""
+    rec, failures = {}, []
+    states = [r.state for r in results]
+    for want in ("refined", "robust"):
+        f = next((i for i, st in enumerate(states, start=1)
+                  if st == want and i > 1), None)
+        if f is None:
+            rec[want] = None
+            continue
+        p_sr = new_sr(dev, skip=calls_before[f])
+        checkpoint.load_stereo_refine(p_sr, f"{ckdir}/before_{f}.npz")
+        out = []
+        busy, ops, wall = _profile_step(
+            torch, lambda: out.append(_feed(p_sr, corrs[f - 1])))
+        rec[want] = {"frame": f, "device_busy_ms": busy, "device_ops": ops,
+                     "wall_ms": wall, "state": out[0].state}
+        if out[0].state != want:
+            failures.append(f"profiled frame {f}: {out[0].state}, the "
+                            f"run's {want}")
+    return rec, failures
+
+
+def stream_phase(torch, cfg, det, desc, match, dev, seed):
+    """Phase 6: ``StereoRefine`` at the ``--stereoRef`` defaults on the
+    card over a seeded sequence (``render_sequence``), fed by the port's
+    front end at the flagship config, with a checkpoint written before
+    every frame; then ``check_stream``, ``stream_card_vs_cpu``,
+    ``stream_full_pool``, ``stream_resume`` and
+    ``profile_stream_frames``. Returns (step
+    record, failures)."""
+    import tempfile
+
+    from matchinglib_poselib_torch.models import checkpoint, pipeline
+    from matchinglib_poselib_torch.models.stereo_refine import StereoRefine
+    from matchinglib_poselib_torch.ops import kernels
+    from matchinglib_poselib_torch.utils.profiling import HostSyncs
+
+    t_phase = time.perf_counter()
+    pairs, K, R_true, t_true = render_sequence(seed, STREAM_FRAMES)
+    render_s = time.perf_counter() - t_phase
+    sr_cfg = stereo_ref_config(cfg)
+    s_seed = seed + 100
+    dist = np.zeros(5, np.float32)
+    pairs_dev = [tuple(torch.from_numpy(x).to(dev) for x in p) for p in pairs]
+    pipe = pipeline.StereoPipeline(det, desc, match, sr_cfg.pose, device=dev)
+
+    def new_sr(device, skip=0, capacity=sr_cfg.max_pool_correspondences):
+        return StereoRefine(
+            K, K, dist, dist, device=device,
+            cfg=dataclasses.replace(sr_cfg,
+                                    max_pool_correspondences=capacity),
+            streams=SeededStreams(torch, sr_cfg.pose.robust, s_seed, skip))
+
+    sr = new_sr(dev)
+    tmp = tempfile.TemporaryDirectory()
+    ckdir = tmp.name
+    calls_before, corrs, results, per_frame = {}, [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    for f, (i1, i2) in enumerate(pairs_dev, start=1):
+        calls_before[f] = sr.streams.calls
+        checkpoint.save_stereo_refine(sr, f"{ckdir}/before_{f}.npz",
+                                      seed=s_seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        corr = pipe.correspondences(i1, i2)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        syncs0 = HostSyncs.count
+        c = (corr.pts1, corr.pts2, corr.mask, corr.quality, corr.distance)
+        fr = _feed(sr, c)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        corrs.append(c)
+        results.append(fr)
+        per_frame.append({
+            "state": fr.state, "corr_ms": (t1 - t0) * 1e3,
+            "stereoRefine_ms": (t2 - t1) * 1e3,
+            "host_syncs": HostSyncs.count - syncs0,
+            "n_corr": int(corr.n), "pool_size": fr.pool_size,
+            "inlier_ratio": fr.inlier_ratio,
+            "rot_err_deg": _rot_deg(R_true, fr.R),
+            "t_err_deg": _dir_deg(t_true, fr.t)})
+    main_s = time.perf_counter() - t_phase - render_s
+    launches = kernels.launch_counts()
+    peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
+    failures = check_stream(results, per_frame, launches)
+
+    times = {"render_s": render_s, "main_s": main_s}
+    t0 = time.perf_counter()
+    cpu_vs, fails = stream_card_vs_cpu(new_sr, corrs, results)
+    failures += fails
+    times["cpu_rerun_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    full_pool, fails = stream_full_pool(new_sr, corrs, dev)
+    failures += fails
+    times["full_pool_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ckpt, fails = stream_resume(checkpoint, new_sr, ckdir, calls_before,
+                                corrs, results, sr)
+    failures += fails
+    times["checkpoint_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    profiled, fails = profile_stream_frames(
+        torch, checkpoint, new_sr, ckdir, calls_before, corrs, results, dev)
+    failures += fails
+    times["profiled_s"] = time.perf_counter() - t0
+    tmp.cleanup()
+
+    acc = [p for p in per_frame if p["state"] in ACCEPTED]
+    by_state = {}
+    for p in per_frame:
+        by_state.setdefault(p["state"], []).append(p["stereoRefine_ms"])
+    record = {
+        "frames": STREAM_FRAMES, "states": [r.state for r in results],
+        "launches": launches, "per_frame": per_frame,
+        "accepted_ms": {
+            "correspondences": _stats([p["corr_ms"] for p in acc]),
+            "stereoRefine": _stats([p["stereoRefine_ms"] for p in acc]),
+            "total": _stats([p["corr_ms"] + p["stereoRefine_ms"]
+                             for p in acc])},
+        "stereoRefine_ms_by_state": {k: _stats(v)
+                                     for k, v in by_state.items()},
+        "host_syncs_per_frame": _stats([p["host_syncs"] for p in per_frame]),
+        "profiled": profiled, "pool_final": results[-1].pool_size,
+        "peak_mib": peak_mib, "card_vs_cpu": cpu_vs, "full_pool": full_pool,
+        "checkpoint": ckpt,
+        **times, "phase_s": time.perf_counter() - t_phase,
+    }
+    return record, failures
 
 
 def _bound(bytes_moved, time_ops):
@@ -1088,6 +1476,12 @@ def main(argv=None) -> int:
         rec["phase_s"] = time.perf_counter() - t_phase
         steps.append((f"FAST t=12 / 2048 kp / ORB / GMBSOF / 96x12 5pt USAC"
                       f" / pose {b_name}", rec))
+    # 6. the stream: StereoRefine on the card, fed by the front end
+    stream_rec, fails = stream_phase(torch, cfg, det, desc, match, dev,
+                                     args.seed)
+    failures.extend(f"stream: {f}" for f in fails)
+    steps.append(("stream: poselib-test --stereoRef defaults (pool 30000) /"
+                  " FAST t=12 / 2048 kp / ORB / GMBSOF", stream_rec))
     for c_name, rec in steps:
         agree = rec.get("cpu_agree")
         if agree and min(agree.values()) < 0.99:
@@ -1126,6 +1520,7 @@ def main(argv=None) -> int:
          "source": "matchinglib_poselib_torch/csrc/fast_nms.cu",
          "replaces": "matchinglib_poselib_tpu/ops/pallas/fast.py:113",
          "launches": launches["fast_nms"], "max_abs_err": k1_err,
+         "launches_stream": stream_rec["launches"]["fast_nms"],
          "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
          "bound_pipe": k1_pipe if k1_bound[1] == "operations" else "memory",
@@ -1139,6 +1534,7 @@ def main(argv=None) -> int:
          "source": "matchinglib_poselib_torch/csrc/knn2.cu",
          "replaces": "matchinglib_poselib_tpu/ops/pallas/knn.py:131",
          "launches": launches["knn2"], "max_abs_err": k2_err,
+         "launches_stream": stream_rec["launches"]["knn2"],
          "ms": k2_ms[0], "plain_ms": k2_plain_ms[0],
          "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
          "bound_route": "tensor cores" if k2_bound is k2_tc else "popc",

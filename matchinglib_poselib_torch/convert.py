@@ -8,6 +8,9 @@ that both packages generate from the same numpy code and seeds.
   attributes and imports nothing from jax.
 - ``tables_from_numpy`` loads the ORB selection table and the 5pt
   interpolation constants from numpy arrays onto a device.
+- ``pool_from_numpy`` loads a streaming correspondence pool (the state
+  ``StereoRefine`` carries across frames, as the JAX package's
+  checkpoint stores it) from numpy arrays onto a device.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 
 from matchinglib_poselib_torch import config as _config
 from matchinglib_poselib_torch.ops.features import DescriptorTables
+from matchinglib_poselib_torch.ops.pool import Pool
 from matchinglib_poselib_torch.ops.solvers import SolverTables
 
 
@@ -59,3 +63,21 @@ def tables_from_numpy(
         SolverTables(np.asarray(interp_pts), np.asarray(vinv_t_nister),
                      device=device),
     )
+
+
+def pool_from_numpy(arrays, device: torch.device | str = "cpu") -> Pool:
+    """A ``Pool`` from a mapping of its field names to numpy arrays (the
+    JAX package's ``Pool`` fields, slot for slot): floats as float32,
+    counters as int32, masks as bool, on `device`."""
+    out = {}
+    for name in Pool._fields:
+        a = np.asarray(arrays[name])
+        if a.dtype == np.bool_:
+            dt = torch.bool
+        elif np.issubdtype(a.dtype, np.integer):
+            dt = torch.int32
+        else:
+            dt = torch.float32
+        out[name] = torch.from_numpy(np.array(a)).to(device=device,
+                                                       dtype=dt)
+    return Pool(**out)

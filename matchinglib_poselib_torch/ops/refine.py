@@ -265,31 +265,45 @@ def polish_pose_iterative(
     rounds: int = 3,
     iterations: int = 15,
     max_points: int | None = None,
+    point_weights: torch.Tensor | None = None,
+    rotation_only: bool = False,
 ) -> tuple[PolishResult, torch.Tensor]:
     """Alternate the LM polish with inlier re-selection from all valid
     slots until (pose, support) stop changing, on a compaction of at most
-    max_points slots. Returns the final PolishResult and the boolean inlier
-    mask over the full input."""
+    max_points slots. point_weights: optional (N,) per-point quality
+    weights (clamped at 1e-3) multiplied into the LM support of every
+    round, re-selection included; rotation_only: polish R alone. Returns
+    the final PolishResult and the boolean inlier mask over the full
+    input."""
     dt = x1.dtype
     valid = valid_mask.to(torch.bool)
     n = x1.shape[0]
     x1c, x2c = x1, x2
     wc = inliers.to(dt)
     validc = valid
+    pw = None if point_weights is None else point_weights.to(dt)
     if max_points is not None and max_points < n:
         score = valid_mask.to(dt) + (inliers > 0).to(dt)
         sel = geo.spread_select(score, max_points)
         x1c, x2c = x1[sel], x2[sel]
         wc = wc[sel]
         validc = valid[sel]
+        if pw is not None:
+            pw = pw[sel]
+    if pw is not None:
+        pw = torch.clamp(pw, min=1e-3)
+        wc = wc * pw
 
     cos_tol = torch.cos(torch.tensor(2e-5, dtype=dt, device=x1.device))
     cost = torch.tensor(torch.inf, dtype=dt, device=x1.device)
     for _ in range(rounds):
         pol = polish_pose_sampson(R, t, x1c, x2c, wc, threshold_sq,
-                                  iterations=iterations)
+                                  iterations=iterations,
+                                  rotation_only=rotation_only)
         err = geo.sampson_error(pol.E, x1c, x2c)
         w_new = ((err < threshold_sq) & validc).to(dt)
+        if pw is not None:
+            w_new = w_new * pw
         ctr = 0.5 * (torch.trace(pol.R @ R.T) - 1.0)
         rot_close = ctr > cos_tol
         t_close = torch.abs(torch.sum(pol.t * t)) > cos_tol

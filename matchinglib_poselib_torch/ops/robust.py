@@ -165,6 +165,16 @@ def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32, device=like.device)
 
 
+def sample_shapes(cfg) -> tuple[tuple[int, int, int], tuple[int, int, int]]:
+    """Shapes of one robust call's sample streams for a RobustConfig of
+    either package: the E batches' uniforms (max_batches, B, k), k = 8
+    for the 8pt solver else 5, and the degeneracy check's single
+    homography batch (1, min(B, 64), 4)."""
+    B = cfg.batch_hypotheses
+    k = 8 if cfg.solver.name == "EIGHT_PT" else 5
+    return (cfg.max_batches, B, k), (1, min(B, 64), 4)
+
+
 def draw_uniforms(generator: torch.Generator | None, shape, device):
     """Uniforms in [0, 1) from an explicit generator (on its device)."""
     gen_dev = generator.device if generator is not None else device
@@ -568,10 +578,8 @@ def estimate_essential_autoth(
     trim_ceiling = 5.0 * px_unit
     runaway_floor = 4.0 * PIX_MIN_GOOD_TH * px_unit
     if uniforms is None:
-        k = 8 if cfg.solver == MinimalSolver.EIGHT_PT else 5
         uniforms = draw_uniforms(
-            generator, (rounds, cfg.max_batches, cfg.batch_hypotheses, k),
-            dev)
+            generator, (rounds, *sample_shapes(cfg)[0]), dev)
     round_cfg = dataclasses.replace(cfg, check_degeneracy=False)
 
     maskb = mask.to(torch.bool)

@@ -6,8 +6,10 @@ reference's stage names (timeMeasurements, noMatch_poselib-test/main.cpp:
 ``torch.cuda.synchronize()`` so device work is charged to the stage that
 launched it, the role ``block_until_ready`` plays in the JAX package.
 
-``HostSyncs`` counts the data-dependent loop exits that read a device flag
-on the host (the JAX package's ``lax.while_loop`` exits): one sync each.
+``HostSyncs`` counts the host reads of device values: the data-dependent
+loop exits (the JAX package's ``lax.while_loop`` exits) and the values
+the streaming framework's decisions read on the host (``fetch``): one
+sync each.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Any
 import torch
 
 class HostSyncs:
-    """Count of host reads of device loop-exit flags."""
+    """Count of host reads of device values."""
 
     count = 0
 
@@ -27,6 +29,12 @@ class HostSyncs:
     def read(cls, flag: torch.Tensor) -> bool:
         cls.count += 1
         return bool(flag)
+
+    @classmethod
+    def fetch(cls, x: torch.Tensor):
+        """A tensor's values as a numpy array on the host."""
+        cls.count += 1
+        return x.detach().cpu().numpy()
 
 
 def _cuda_device(x: Any):

@@ -11,6 +11,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from matchinglib_poselib_torch.ops.robust import sample_shapes
+
 # xdist runs several workers per host: keep each worker's torch pool small
 torch.set_num_threads(2)
 
@@ -87,6 +89,26 @@ def jax_halign_uniforms(key, planes: int, batches: int, B: int, k: int):
     key, key_fb = jax.random.split(key)
     return (jax_plane_uniforms(key, planes, batches, B),
             jax_uniforms(key_fb, batches, B, k))
+
+
+def jax_stereo_refine_streams(seed, cfg, key=None):
+    """The port's ``StereoRefine(streams=...)`` callable that replays the
+    JAX ``StereoRefine``'s samples: each robust call takes the next
+    ``key, sub = split(key)`` (``_next_key``, from ``PRNGKey(seed)`` or
+    `key`, e.g. a checkpoint's ``prng_key``); ``_pose_from_set`` hands
+    ``sub`` to ``estimate_essential_robust``, whose batch i samples under
+    ``fold_in(sub, i)`` and whose degeneracy check under ``fold_in(sub,
+    777)``. -> callable returning ((max_batches, B, k), (1, min(B, 64),
+    4)); `cfg` is either package's StereoRefineConfig."""
+    (nb, B, k), _ = sample_shapes(cfg.pose.robust)
+    state = {"key": jax.random.PRNGKey(seed) if key is None
+             else jnp.asarray(key, jnp.uint32)}
+
+    def streams():
+        state["key"], sub = jax.random.split(state["key"])
+        return jax_uniforms(sub, nb, B, k), jax_degen_uniforms(sub, B)
+
+    return streams
 
 
 def rot_angle_deg(Ra, Rb):

@@ -20,9 +20,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_port_runs_without_importing_jax():
     """A fresh interpreter imports the port and chip_smoke, runs the plain
-    pipeline at the FAST/ORB and the SIFT/SIFT + GMS configs and one
-    estimate_pose per pose branch (AutoTh, Halign, BA, Kneip), and never
-    imports jax."""
+    pipeline at the FAST/ORB and the SIFT/SIFT + GMS configs, one
+    estimate_pose per pose branch (AutoTh, Halign, BA, Kneip), two frames
+    of StereoRefine at chip_smoke's stream config (a small pool) with a
+    checkpoint round trip, and the FileStorage readers, and never imports
+    jax."""
     code = textwrap.dedent("""
         import dataclasses, sys
         import numpy as np, torch
@@ -64,6 +66,37 @@ def test_port_runs_without_importing_jax():
                 torch.zeros(5), torch.zeros(5), cfg,
                 **chip_smoke.pose_streams(torch, robust, cfg, i))
             assert bool(torch.isfinite(pose.R).all()), name
+        import os, tempfile
+        from matchinglib_poselib_torch.models import checkpoint
+        from matchinglib_poselib_torch.models.stereo_refine import (
+            StereoRefine)
+        from matchinglib_poselib_torch.ops import pool
+        from matchinglib_poselib_torch.utils import opencv_fs
+        sr_cfg = chip_smoke.stereo_ref_config(c)
+        sr_cfg = dataclasses.replace(
+            sr_cfg, max_pool_correspondences=256,
+            pose=dataclasses.replace(sr_cfg.pose, robust=base.robust))
+        def new_sr():
+            return StereoRefine(K, K, cfg=sr_cfg, device="cpu",
+                                streams=chip_smoke.SeededStreams(
+                                    torch, base.robust, 0))
+        sr = new_sr()
+        for _ in range(2):
+            fr = sr.add_new_correspondences(
+                corr.pts1, corr.pts2, corr.mask, corr.quality,
+                desc_dist=corr.distance)
+            assert np.isfinite(fr.R).all() and fr.pool_size <= 256
+        path = os.path.join(tempfile.mkdtemp(), "sr.npz")
+        checkpoint.save_stereo_refine(sr, path)
+        back = new_sr()
+        checkpoint.load_stereo_refine(back, path)
+        assert int(back.pool.n_valid) == int(sr.pool.n_valid)
+        assert isinstance(back.pool, pool.Pool)
+        fs = "eval/fixtures/semireal_fs/"
+        frame = opencv_fs.sequ_frame(
+            opencv_fs.read_cam_pars(fs + "sequSingleFrameData_0.yaml.gz"),
+            opencv_fs.read_matches(fs + "matchSingleFrameData_0.yaml.gz"))
+        assert frame["pts1"].shape == (300, 2)
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m.startswith("matchinglib_poselib_tpu")]
         assert not bad, bad
@@ -74,6 +107,22 @@ def test_port_runs_without_importing_jax():
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip().endswith("OK")
+
+
+def test_stereo_refine_defaults_to_the_card():
+    """StereoRefine runs on the CUDA card unless asked for the CPU; without
+    a card the default raises (no fallback)."""
+    from matchinglib_poselib_torch.models.stereo_refine import StereoRefine
+
+    K = np.array([[600.0, 0, 320.0], [0, 600.0, 240.0], [0, 0, 1.0]])
+    if torch.cuda.is_available():
+        assert StereoRefine(K, K).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError):
+            StereoRefine(K, K)
+        with pytest.raises(RuntimeError):
+            StereoRefine(K, K, device="cuda")
+    assert StereoRefine(K, K, device="cpu").pool.valid.device.type == "cpu"
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -225,3 +274,50 @@ def test_pose_branches_card_vs_cpu():
         if name == "BA":
             assert not chip_smoke.sync_free_checks(torch, corr, pose, Kt,
                                                    dist)
+
+
+@pytest.mark.gpu
+def test_stream_card_vs_cpu():
+    """chip_smoke.py phase 6's card-vs-CPU check at a small size: four
+    frames of the sequence through StereoRefine on the card (a pool of
+    2048, 64 x 4 hypotheses), then again on the CPU from the card's
+    correspondences with the same streams."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+
+    import chip_smoke
+    from matchinglib_poselib_torch import config as c
+    from matchinglib_poselib_torch.models import pipeline
+    from matchinglib_poselib_torch.models.stereo_refine import StereoRefine
+
+    pairs, K, _, _ = chip_smoke.render_sequence(0, 4, 696, 256)
+    s = chip_smoke.stereo_ref_config(c)
+    s = dataclasses.replace(
+        s, max_pool_correspondences=2048,
+        pose=dataclasses.replace(s.pose, robust=c.RobustConfig(
+            batch_hypotheses=64, max_batches=4)))
+    pipe = pipeline.StereoPipeline(
+        c.DetectorConfig(max_keypoints=1024, fast_threshold=12.0),
+        pose_cfg=s.pose)
+
+    def new_sr(device):
+        return StereoRefine(K, K, cfg=s, device=device,
+                            streams=chip_smoke.SeededStreams(
+                                torch, s.pose.robust, 1))
+
+    card = new_sr("cuda")
+    corrs, results = [], []
+    for i1, i2 in pairs:
+        corr = pipe.correspondences(i1, i2)
+        corrs.append((corr.pts1, corr.pts2, corr.mask, corr.quality,
+                      corr.distance))
+        results.append(chip_smoke._feed(card, corrs[-1]))
+    cpu = new_sr("cpu")
+    for c_card, r in zip(corrs, results):
+        r_cpu = chip_smoke._feed(cpu, tuple(x.cpu() for x in c_card))
+        assert r.state == r_cpu.state
+        assert abs(r.pool_size - r_cpu.pool_size) <= (
+            chip_smoke.STREAM_POOL_RTOL * max(r_cpu.pool_size, 1))
+        assert chip_smoke._rot_deg(r.R, r_cpu.R) < chip_smoke.POSE_ROT_DEG
+        assert chip_smoke._dir_deg(r.t, r_cpu.t) < chip_smoke.POSE_TANG_DEG

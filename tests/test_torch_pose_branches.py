@@ -47,8 +47,7 @@ KNEIP = jcfg.PoseConfig(
 
 def _streams(cfg, key):
     """The port's stream arguments for one JAX-package PoseConfig."""
-    B, nb = cfg.robust.batch_hypotheses, cfg.robust.max_batches
-    k = 8 if cfg.robust.solver == jcfg.MinimalSolver.EIGHT_PT else 5
+    (nb, B, k), _ = trob.sample_shapes(cfg.robust)
     if cfg.use_halign:
         planes, fb = jax_halign_uniforms(key, cfg.halign.max_planes, nb, B,
                                          k)
