@@ -30,7 +30,10 @@ Phases (any failure exits non-zero):
      keypoints, ORB, GMBSOF, 96 x 12 five-point hypotheses) on a seeded
      synthetic 1392x512 stereo scene with a planted pose: one warm run,
      then timed runs; launch counters must show both kernels on the path;
-     the pose must meet the accuracy bars;
+     the pose must meet the accuracy bars; the profiled step's device ops
+     at most 3% over the 31,143 of the single-pair path before the pair
+     axis (``FLAGSHIP_DEVICE_OPS``), its host syncs at most 2 over the 24
+     measured with the closed-form LM Jacobian (``FLAGSHIP_HOST_SYNCS``);
   5. the port's CPU path on the same pair: keypoint and match slots agree
      with the card's;
   4b. the same at SIFT/SIFT + GMBSOF + GMS (2048 keypoints, 96 x 12):
@@ -62,7 +65,21 @@ Phases (any failure exits non-zero):
      full-pool branch) and agree as frames 1-6 do (``stream_full_pool``);
      the checkpoint after frame 4 resumed on the card
      (same states, R and t within 1e-6); one refined and one robust frame
-     profiled.
+     profiled;
+  7. the batch (``batch_phase``): ``StereoPipeline.run_batch`` at the
+     flagship config on the sequence's first 8 pairs (the bad pair
+     among them) with seeded explicit streams: K1 launched once for the
+     batch and K2a twice per pair; K1 against its zero-padded plain
+     version at every pixel of the batch's (16, 512, 1392) stack; the 7
+     good pairs within the accuracy
+     bars; every pair equal to ``run`` of that pair on the card with the
+     same streams (keypoint and match slots 100%, inlier masks equal,
+     0.01 / 0.05 deg); the batch's pose stage on the CPU from the card's
+     correspondences within phase 4d's bars; host syncs per batch at
+     most the sum, over the runs of each data-dependent loop, of the most
+     iterations any pair takes there alone, plus 2; the pose stage's
+     device ops at most 1.5x the costliest pair's alone; timed batches
+     beside the 8 pairs run one by one.
 
 Prints a JSON ``kernels`` line, one JSON ``step`` line per path, the
 card's name and power limit, and as its last line
@@ -266,6 +283,13 @@ def render_sequence(seed: int = 0, frames: int = 10, width: int = WIDTH,
 # ---------------------------------------------------------------------------
 # measurement helpers
 # ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=1)
+def _sequence(seed: int):
+    """``render_sequence(seed, STREAM_FRAMES)``, rendered once for phases 6
+    and 7."""
+    return render_sequence(seed, STREAM_FRAMES)
 
 
 def _cuda_ms(torch, fn, iters=20, warm=3):
@@ -1179,7 +1203,7 @@ def stream_phase(torch, cfg, det, desc, match, dev, seed):
     from matchinglib_poselib_torch.utils.profiling import HostSyncs
 
     t_phase = time.perf_counter()
-    pairs, K, R_true, t_true = render_sequence(seed, STREAM_FRAMES)
+    pairs, K, R_true, t_true = _sequence(seed)
     render_s = time.perf_counter() - t_phase
     sr_cfg = stereo_ref_config(cfg)
     s_seed = seed + 100
@@ -1270,6 +1294,269 @@ def stream_phase(torch, cfg, det, desc, match, dev, seed):
         "peak_mib": peak_mib, "card_vs_cpu": cpu_vs, "full_pool": full_pool,
         "checkpoint": ckpt,
         **times, "phase_s": time.perf_counter() - t_phase,
+    }
+    return record, failures
+
+
+# phase 7, the batch: the first BATCH_PAIRS frames of the sequence (the
+# bad pair among them) through run_batch; timed batches; the batch against
+# run of each pair on the card (deg); the pose stage's device ops against
+# the costliest pair's alone. Host syncs: each run of each loop of the
+# batch (the robust batches, LO, each LM polish, the polish rounds) reads
+# once per iteration until its slowest pair has left, so the batch reads
+# at most the sum over those runs of the most iterations any pair takes
+# there alone (``loop_iterations``), plus BATCH_SYNC_SLACK for an f32 tie
+# that the card's batched products break otherwise than a batch of one;
+# a stage that looped over the pairs would read once per pair instead
+BATCH_PAIRS = 8
+BATCH_TIMED_RUNS = 5
+BATCH_ROT_DEG, BATCH_TANG_DEG = 0.01, 0.05
+BATCH_OPS_RATIO = 1.5
+BATCH_SYNC_SLACK = 2
+# phase 4's flagship step: device ops of one profiled step before the
+# pair axis (PERF.md §5), which the single-pair path must not exceed by
+# more than FLAGSHIP_OPS_SLACK, and host syncs of one step with the
+# closed-form LM Jacobian (PERF.md §6), which it must not exceed by more
+# than FLAGSHIP_SYNCS_SLACK (the LM latch compares costs at f32 noise)
+FLAGSHIP_DEVICE_OPS = 31143
+FLAGSHIP_OPS_SLACK = 1.03
+FLAGSHIP_HOST_SYNCS = 24
+FLAGSHIP_SYNCS_SLACK = 2
+
+
+def batch_streams(torch, robust, pose_cfg, seed, pairs):
+    """Seeded explicit streams of a batch on the CPU, pair after pair:
+    (uniforms (P, max_batches, B, k), degen_uniforms (P, 1, min(B, 64),
+    4))."""
+    g = torch.Generator().manual_seed(seed)
+    e_shape, d_shape = robust.sample_shapes(pose_cfg.robust)
+    drawn = [(torch.rand(e_shape, generator=g),
+              torch.rand(d_shape, generator=g)) for _ in range(pairs)]
+    return (torch.stack([u for u, _ in drawn]),
+            torch.stack([d for _, d in drawn]))
+
+
+def batch_vs_run(torch, corr, pose, singles):
+    """Per pair, the batch against ``run`` of that pair alone with the
+    same streams: shares of keypoint slots (mask and xy within 1e-4) and
+    match slots (mask; partner within 1e-4 where kept), inlier masks
+    equal, rotation and translation direction differences (deg). Returns
+    (rows, failures)."""
+    rows, failures = [], []
+    for i, (c, p) in enumerate(singles):
+        kp = min(float(((getattr(corr, s).mask[i] == getattr(c, s).mask)
+                        & ((getattr(corr, s).xy[i] - getattr(c, s).xy)
+                           .abs().amax(-1) <= 1e-4)).float().mean())
+                 for s in ("kps1", "kps2"))
+        same = (corr.pts2[i] - c.pts2).abs().amax(-1) <= 1e-4
+        matches = float(((corr.mask[i] == c.mask)
+                         & (same | ~c.mask)).float().mean())
+        row = {"keypoints": kp, "matches": matches,
+               "inliers_equal": bool(torch.equal(pose.inlier_mask[i],
+                                                 p.inlier_mask)),
+               "rot_deg": _rot_deg(pose.R[i].cpu().numpy(),
+                                   p.R.cpu().numpy()),
+               "t_deg": _dir_deg(pose.t[i].cpu().numpy(), p.t.cpu().numpy())}
+        rows.append(row)
+        if (kp < 1.0 or matches < 1.0 or not row["inliers_equal"]
+                or row["rot_deg"] >= BATCH_ROT_DEG
+                or row["t_deg"] >= BATCH_TANG_DEG):
+            failures.append(f"pair {i + 1}: batch vs run {row}")
+    return rows, failures
+
+
+def batch_card_vs_cpu(torch, pipeline, corr, pose, K, dist, pose_cfg,
+                      streams):
+    """The batch's pose stage again on the CPU from the card's
+    correspondences and the same streams, held per pair to phase 4d's bars
+    (POSE_ROT_DEG, POSE_TANG_DEG, POSE_INLIER_AGREE). Returns (rows,
+    failures)."""
+    cpu = pipeline.estimate_pose(
+        corr.pts1.cpu(), corr.pts2.cpu(), corr.mask.cpu(),
+        corr.quality.cpu(), K.cpu(), K.cpu(), dist.cpu(), dist.cpu(),
+        pose_cfg, uniforms=streams[0].cpu(), degen_uniforms=streams[1].cpu())
+    rows, failures = [], []
+    for i in range(corr.mask.shape[0]):
+        row = {"rot_deg": _rot_deg(pose.R[i].cpu().numpy(), cpu.R[i].numpy()),
+               "t_deg": _dir_deg(pose.t[i].cpu().numpy(), cpu.t[i].numpy()),
+               "inliers": float((pose.inlier_mask[i].cpu()
+                                 == cpu.inlier_mask[i]).float().mean())}
+        rows.append(row)
+        if (row["rot_deg"] >= POSE_ROT_DEG or row["t_deg"] >= POSE_TANG_DEG
+                or row["inliers"] < POSE_INLIER_AGREE):
+            failures.append(f"pair {i + 1}: card vs CPU pose stage {row}")
+    return rows, failures
+
+
+def batch_phase(torch, det, desc, match, pose_cfg, dev, seed):
+    """Phase 7: ``StereoPipeline.run_batch`` at the flagship config on the
+    first BATCH_PAIRS frames of the sequence with seeded explicit streams
+    (``batch_streams``): counters from 0, one batch, counters read back (K1
+    once, K2a twice per pair); K1 against its plain version at every pixel
+    of the batch's (2P, H, W) stack; the good pairs within the accuracy
+    bars; each pair alone through ``run`` (``batch_vs_run``, host syncs per
+    loop run, ms);
+    the pose stage on the CPU (``batch_card_vs_cpu``); BATCH_TIMED_RUNS
+    timed batches beside the pairs run one by one; one profiled batch,
+    its pose stage and the costliest pair's pose stage alone (device
+    ops). Returns (step record, failures)."""
+    from matchinglib_poselib_torch.models import pipeline
+    from matchinglib_poselib_torch.ops import kernels, robust
+    from matchinglib_poselib_torch.ops.kernels import fast_nms
+    from matchinglib_poselib_torch.utils.profiling import (
+        HostSyncs, loop_iterations,
+    )
+
+    t_phase = time.perf_counter()
+    pairs, K, R_true, t_true = _sequence(seed)
+    pairs = pairs[:BATCH_PAIRS]
+    P = len(pairs)
+    imgs1 = torch.from_numpy(np.stack([a for a, _ in pairs])).to(dev)
+    imgs2 = torch.from_numpy(np.stack([b for _, b in pairs])).to(dev)
+    Kt = torch.from_numpy(K).to(dev)
+    dist = torch.zeros(5, device=dev)
+    U, D = batch_streams(torch, robust, pose_cfg, seed + 30, P)
+    pipe = pipeline.StereoPipeline(det, desc, match, pose_cfg, device=dev)
+
+    def batch():
+        return pipe.run_batch(imgs1, imgs2, Kt, Kt, dist, dist, uniforms=U,
+                              degen_uniforms=D)
+
+    def run(i):
+        return pipe.run(imgs1[i], imgs2[i], Kt, Kt, dist, dist,
+                        uniforms=U[i], degen_uniforms=D[i])
+
+    # the main path: counts set to 0 just before, read just after
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with HostSyncs.traced() as log:
+        corr, pose = batch()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    host_syncs = len(log)
+    expected = {"fast_nms": 1, "knn2": 2 * P, "knn2_l2": 0}
+    failures = [f"{k} launched {launches[k]} times in the batch (expected "
+                f"{v})" for k, v in expected.items() if launches[k] != v]
+    # K1 at every pixel of the stack the counted launch scored
+    k1_err, k1_ties = check_fast_nms(
+        torch, fast_nms, torch.cat([imgs1, imgs2]),
+        det.fast_threshold / 255.0, det.nms_radius)
+    if k1_ties:
+        failures.append(f"fast_nms: {k1_ties} tie mismatches on the "
+                        "batch's stack, expected 0")
+    if (pose.R.shape != (P, 3, 3)
+            or corr.mask.shape != (P, det.max_keypoints)):
+        failures.append("unexpected output shapes")
+    if not bool(torch.isfinite(pose.R).all() and torch.isfinite(pose.t).all()
+                and torch.isfinite(corr.pts2).all()):
+        failures.append("non-finite pose or correspondences")
+    per_pair = []
+    models_per_batch = pose_cfg.robust.batch_hypotheses * 10
+    for i in range(P):
+        row = {"n_corr": int(corr.n[i]), "n_inliers": int(pose.n_inliers[i]),
+               "n_batches": int(pose.n_models_generated[i])
+               // models_per_batch,
+               "rot_err_deg": _rot_deg(R_true, pose.R[i].cpu().numpy()),
+               "t_err_deg": _dir_deg(t_true, pose.t[i].cpu().numpy())}
+        per_pair.append(row)
+        if i + 1 != STREAM_BAD_FRAME and (
+                row["rot_err_deg"] >= MAX_ROT_DEG
+                or row["t_err_deg"] >= MAX_TANG_DEG
+                or row["n_corr"] < MIN_CORR
+                or row["n_inliers"] < MIN_INLIERS):
+            failures.append(f"pair {i + 1} off the accuracy bars: {row}")
+
+    # each pair alone through run, with its own streams
+    singles, loops_alone = [], []
+    for i in range(P):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with HostSyncs.traced() as log_i:
+            singles.append(run(i))
+        torch.cuda.synchronize()
+        per_pair[i]["run_ms"] = (time.perf_counter() - t0) * 1e3
+        per_pair[i]["run_host_syncs"] = len(log_i)
+        loops_alone.append(loop_iterations(log_i))
+    vs_run, fails = batch_vs_run(torch, corr, pose, singles)
+    failures += fails
+    alone = [p["run_host_syncs"] for p in per_pair]
+    # per run of each loop: the batch's reads, the most of any pair alone
+    loops_batch = loop_iterations(log)
+    loop_runs = {f"{site}#{k}": [loops_batch.get((site, k), 0),
+                                 max(a.get((site, k), 0) for a in loops_alone)]
+                 for site, k in sorted({*loops_batch,
+                                        *(x for a in loops_alone for x in a)})}
+    sync_bound = sum(m for _, m in loop_runs.values()) + BATCH_SYNC_SLACK
+    if host_syncs > sync_bound:
+        failures.append(f"{host_syncs} host syncs in the batch, more than "
+                        f"{sync_bound}: loop runs [batch, slowest pair "
+                        f"alone] {loop_runs}")
+    t0 = time.perf_counter()
+    vs_cpu, fails = batch_card_vs_cpu(torch, pipeline, corr, pose, Kt, dist,
+                                      pose_cfg, (U, D))
+    failures += fails
+    cpu_s = time.perf_counter() - t0
+
+    # timed batches, then the same pairs one by one in the same run
+    pipe.timer.reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    batch_ms = []
+    for _ in range(BATCH_TIMED_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch()
+        torch.cuda.synchronize()
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+    stages = {k: v / BATCH_TIMED_RUNS for k, v in pipe.timer.times_ms.items()}
+    peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(P):
+        run(i)
+    torch.cuda.synchronize()
+    runs_ms = (time.perf_counter() - t0) * 1e3
+
+    # device ops: one batch, its pose stage, each pair's pose stage alone
+    def pose_stage(sel):
+        return lambda: pipeline.estimate_pose(
+            corr.pts1[sel], corr.pts2[sel], corr.mask[sel], corr.quality[sel],
+            Kt, Kt, dist, dist, pose_cfg, uniforms=U[sel].to(dev),
+            degen_uniforms=D[sel].to(dev))
+
+    # the costliest pair alone: the most robust batches, then the longest
+    costliest = max(range(P), key=lambda i: (per_pair[i]["n_batches"],
+                                             per_pair[i]["run_ms"]))
+    t0 = time.perf_counter()
+    busy_ms, device_ops, prof_wall_ms = _profile_step(torch, batch)
+    pose_busy, pose_ops, _ = _profile_step(torch, pose_stage(slice(None)))
+    alone_busy, alone_ops, _ = _profile_step(torch, pose_stage(costliest))
+    profiled_s = time.perf_counter() - t0
+    if pose_ops > BATCH_OPS_RATIO * alone_ops:
+        failures.append(f"the batch's pose stage: {pose_ops} device ops, "
+                        f"pair {costliest + 1} alone {alone_ops}")
+    mean_ms = float(np.mean(batch_ms))
+    record = {
+        "pairs": P, "launches": launches, "host_syncs_per_batch": host_syncs,
+        "host_syncs_bound": sync_bound, "host_syncs_loop_runs": loop_runs,
+        "host_syncs_pairs_alone": alone, "per_pair": per_pair,
+        "k1_batch_stack": {"shape": [2 * P, *imgs1.shape[1:]],
+                           "max_abs_err": k1_err, "tie_mismatches": k1_ties},
+        "batch_vs_run": vs_run, "card_vs_cpu_pose": vs_cpu,
+        "warm_s": warm_s, "runs": BATCH_TIMED_RUNS, "ms_mean": mean_ms,
+        "ms_median": float(np.median(batch_ms)),
+        "ms_min": float(np.min(batch_ms)), "pairs_per_s": P / mean_ms * 1e3,
+        "stages_ms": stages, "pairs_one_by_one_ms": runs_ms,
+        "pairs_one_by_one_per_s": P / runs_ms * 1e3, "peak_mem_mib": peak_mib,
+        "profiled_run": {"wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
+                         "device_ops": device_ops},
+        "pose_stage_profiled": {
+            "device_busy_ms": pose_busy, "device_ops": pose_ops,
+            "costliest_pair": costliest + 1,
+            "costliest_pair_alone": {"device_busy_ms": alone_busy,
+                                     "device_ops": alone_ops}},
+        "cpu_check_s": cpu_s, "profiled_s": profiled_s,
+        "phase_s": time.perf_counter() - t_phase,
     }
     return record, failures
 
@@ -1429,6 +1716,13 @@ def main(argv=None) -> int:
     corr, rec = path("FAST/ORB", (det, desc, match),
                      {"fast_nms": 2, "knn2": 2}, TIMED_RUNS)
     launches = rec["launches"]
+    ops = rec["profiled_run"]["device_ops"]
+    if ops is None or ops > FLAGSHIP_OPS_SLACK * FLAGSHIP_DEVICE_OPS:
+        failures.append(f"FAST/ORB: {ops} device ops per step, "
+                        f"{FLAGSHIP_DEVICE_OPS} before the pair axis")
+    if rec["host_syncs_per_pair"] > FLAGSHIP_HOST_SYNCS + FLAGSHIP_SYNCS_SLACK:
+        failures.append(f"FAST/ORB: {rec['host_syncs_per_pair']} host syncs "
+                        f"per step, {FLAGSHIP_HOST_SYNCS} measured before")
     # 5. the port's CPU path on the same pair agrees with the card's
     rec["cpu_agree"] = cpu_agreement(torch, pipeline, corr, img1, img2, det,
                                      desc, match)
@@ -1482,6 +1776,13 @@ def main(argv=None) -> int:
     failures.extend(f"stream: {f}" for f in fails)
     steps.append(("stream: poselib-test --stereoRef defaults (pool 30000) /"
                   " FAST t=12 / 2048 kp / ORB / GMBSOF", stream_rec))
+    # 7. the batch: run_batch on the sequence's first 8 pairs
+    batch_rec, fails = batch_phase(torch, det, desc, match, pose_cfg, dev,
+                                   args.seed)
+    failures.extend(f"batch: {f}" for f in fails)
+    steps.append((f"batch of {BATCH_PAIRS} (render_sequence frames 1-"
+                  f"{BATCH_PAIRS}): FAST t=12 / 2048 kp / ORB / GMBSOF / "
+                  "96x12 5pt USAC", batch_rec))
     for c_name, rec in steps:
         agree = rec.get("cpu_agree")
         if agree and min(agree.values()) < 0.99:
@@ -1519,8 +1820,11 @@ def main(argv=None) -> int:
         {"name": "fast_nms", "route": "cuda",
          "source": "matchinglib_poselib_torch/csrc/fast_nms.cu",
          "replaces": "matchinglib_poselib_tpu/ops/pallas/fast.py:113",
-         "launches": launches["fast_nms"], "max_abs_err": k1_err,
+         "launches": launches["fast_nms"],
+         "max_abs_err": max(k1_err,
+                            batch_rec["k1_batch_stack"]["max_abs_err"]),
          "launches_stream": stream_rec["launches"]["fast_nms"],
+         "launches_batch": batch_rec["launches"]["fast_nms"],
          "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
          "bound_pipe": k1_pipe if k1_bound[1] == "operations" else "memory",
@@ -1535,6 +1839,7 @@ def main(argv=None) -> int:
          "replaces": "matchinglib_poselib_tpu/ops/pallas/knn.py:131",
          "launches": launches["knn2"], "max_abs_err": k2_err,
          "launches_stream": stream_rec["launches"]["knn2"],
+         "launches_batch": batch_rec["launches"]["knn2"],
          "ms": k2_ms[0], "plain_ms": k2_plain_ms[0],
          "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
          "bound_route": "tensor cores" if k2_bound is k2_tc else "popc",
@@ -1549,6 +1854,7 @@ def main(argv=None) -> int:
          "source": "matchinglib_poselib_torch/csrc/knn2_l2.cu",
          "replaces": "matchinglib_poselib_tpu/ops/pallas/knn.py:51",
          "launches": sift_launches["knn2_l2"], "max_abs_err": k2b_err,
+         "launches_batch": batch_rec["launches"]["knn2_l2"],
          "ms": k2b["sift"][0]["ms"], "plain_ms": k2b["sift"][0]["plain_ms"],
          "device_ms": k2b["sift"][0]["device_ms"],
          "plain_device_ms": k2b["sift"][0]["plain_device_ms"],

@@ -13,6 +13,8 @@ float32 grayscale in [0, 1].
 On a CUDA tensor ``detect_keypoints`` runs the fused FAST+NMS kernel
 (``ops/kernels/fast_nms.py``) where the JAX package runs its Pallas kernel;
 on a CPU tensor it runs ``nms(fast_score(.))``, the kernel's plain version.
+``detect_keypoints_batch`` scores a stack of images in one kernel call
+(the batched pipeline's pairs) and selects keypoints image by image.
 Binary descriptors are (K, 8) int32 words holding the same bit patterns as
 the JAX package's (K, 8) uint32 words; float descriptors are (K, 128) or
 (K, 64) float32.
@@ -523,31 +525,43 @@ def detector_bands(cfg: DetectorConfig) -> int:
     return cfg.column_bands
 
 
-def detect_keypoints(img: torch.Tensor, cfg: DetectorConfig) -> Keypoints:
-    """getKeypoints equivalent (features.cpp:145): FAST score -> NMS ->
-    banded (or grid) top-k -> subpixel refinement; SIFT and SURF dispatch
-    to ``ops/scale_space.py``.
-
-    Ported rows: single-scale FAST/ORB/BRISK, SIFT, SURF. Every other
-    detector of the JAX package is not ported yet and raises.
-    """
-    from matchinglib_poselib_torch.ops.kernels import fast_nms
-
+def _scale_space_kind(cfg: DetectorConfig) -> str | None:
+    """The scale-space row of cfg ("SIFT" or "SURF"), or None for the FAST
+    rows; every other detector of the JAX package is not ported yet and
+    raises."""
     kind = DETECTOR_ALIASES.get(cfg.kind.upper(), "FAST")
     if kind in ("SIFT", "SURF"):
-        from matchinglib_poselib_torch.ops import scale_space
-
-        fn = (scale_space.sift_dog_keypoints if kind == "SIFT"
-              else scale_space.surf_hessian_keypoints)
-        return fn(img, cfg.max_keypoints, grid_cells=cfg.grid_cells)
+        return kind
     if kind not in _FAST_KINDS or cfg.pyramid_levels > 1:
         raise NotImplementedError(
             f"detector {cfg.kind!r} (pyramid_levels={cfg.pyramid_levels}) "
             "is not ported; single-scale FAST/ORB/BRISK, SIFT and SURF only"
         )
-    score = fast_nms.fast_nms_score(
-        img[None], cfg.fast_threshold / 255.0, cfg.nms_radius
-    )[0]
+    return None
+
+
+def _scale_space_keypoints(img: torch.Tensor, cfg: DetectorConfig,
+                           kind: str) -> Keypoints:
+    from matchinglib_poselib_torch.ops import scale_space
+
+    fn = (scale_space.sift_dog_keypoints if kind == "SIFT"
+          else scale_space.surf_hessian_keypoints)
+    return fn(img, cfg.max_keypoints, grid_cells=cfg.grid_cells)
+
+
+def fast_scores(imgs: torch.Tensor, cfg: DetectorConfig) -> torch.Tensor:
+    """FAST score with fused NMS of a stack of images (B, H, W) -> (B, H,
+    W): one launch of the fused kernel on the card for the whole stack."""
+    from matchinglib_poselib_torch.ops.kernels import fast_nms
+
+    return fast_nms.fast_nms_score(imgs, cfg.fast_threshold / 255.0,
+                                   cfg.nms_radius)
+
+
+def select_fast_keypoints(score: torch.Tensor,
+                          cfg: DetectorConfig) -> Keypoints:
+    """One image's keypoints from its FAST + NMS score (H, W): banded (or
+    grid) top-k, then subpixel refinement."""
     bands = detector_bands(cfg)
     if bands:
         xy, sc, mask = select_keypoints_banded(
@@ -562,6 +576,30 @@ def detect_keypoints(img: torch.Tensor, cfg: DetectorConfig) -> Keypoints:
         xy=xy, score=sc, angle=torch.zeros_like(sc),
         scale=torch.ones_like(sc), mask=mask,
     )
+
+
+def detect_keypoints(img: torch.Tensor, cfg: DetectorConfig) -> Keypoints:
+    """getKeypoints equivalent (features.cpp:145): FAST score -> NMS ->
+    banded (or grid) top-k -> subpixel refinement; SIFT and SURF dispatch
+    to ``ops/scale_space.py``.
+
+    Ported rows: single-scale FAST/ORB/BRISK, SIFT, SURF. Every other
+    detector of the JAX package is not ported yet and raises. The image
+    runs as a stack of one through ``detect_keypoints_batch``.
+    """
+    return detect_keypoints_batch(img[None], cfg)[0]
+
+
+def detect_keypoints_batch(imgs: torch.Tensor,
+                           cfg: DetectorConfig) -> list[Keypoints]:
+    """``detect_keypoints`` of every image of a stack (B, H, W): the FAST
+    rows score the whole stack in one call of the fused kernel and select
+    per image; the scale-space rows detect image by image."""
+    kind = _scale_space_kind(cfg)
+    if kind is not None:
+        return [_scale_space_keypoints(img, cfg, kind) for img in imgs]
+    return [select_fast_keypoints(score, cfg)
+            for score in fast_scores(imgs.contiguous(), cfg)]
 
 
 class DescriptorTables:

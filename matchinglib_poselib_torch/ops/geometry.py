@@ -388,38 +388,57 @@ def topk_stable(x: torch.Tensor, k: int):
 
 
 def spread_select(score: torch.Tensor, k: int) -> torch.Tensor:
-    """Top-k indices of ``score`` with a spatially spread tie-break
-    (a per-index Knuth hash below half the smallest score step)."""
-    n = score.shape[0]
+    """Top-k indices of ``score`` along its last axis with a spatially
+    spread tie-break (a per-index Knuth hash below half the smallest score
+    step)."""
+    n = score.shape[-1]
     h = (torch.arange(n, dtype=torch.int64, device=score.device)
          * 2654435761) % 4294967296
     tie = h.to(score.dtype) * (0.4 / 4294967296.0)
     return topk_stable(score + tie, k)[1]
 
 
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows `idx` of x along its point axis, per leading (pair) index:
+    x (..., N) or (..., N, C), idx (..., K) -> (..., K) or (..., K, C)."""
+    if x.ndim == idx.ndim:
+        return torch.gather(x, -1, idx)
+    return torch.take_along_dim(x, idx[..., None], dim=-2)
+
+
 def recover_pose(E, x1, x2, mask, dist_thresh: float = 50.0,
                  vote_points: int | None = None):
     """Cheirality-voted pose from E (five-point.cpp:150 recoverPose).
 
-    Returns (R, t, X, good_mask, votes). vote_points: when set (unbatched
-    call only) and smaller than N, the 4-fold vote runs on a spread
-    selection of that many points and only the winner is triangulated at
-    full N.
+    E (..., 3, 3), x1, x2 (..., N, 2), mask (..., N), with an optional
+    leading pair axis. Returns (R, t, X, good_mask, votes). vote_points:
+    when set and smaller than N, the 4-fold vote runs on a spread
+    selection of that many points per pair and only the winner is
+    triangulated at full N.
     """
     R1, R2, t = decompose_essential(E)
     cands_R = torch.stack([R1, R1, R2, R2], dim=-3)
     cands_t = torch.stack([t, -t, t, -t], dim=-2)
-    if vote_points is not None and x1.ndim == 2 and vote_points < x1.shape[0]:
+
+    def take(a, idx):
+        ix = idx.reshape(idx.shape + (1,) * (a.ndim - idx.ndim))
+        ix = ix.expand(idx.shape + (1,) + a.shape[idx.ndim + 1:])
+        return torch.gather(a, idx.ndim, ix).squeeze(idx.ndim)
+
+    if vote_points is not None and vote_points < x1.shape[-2]:
         sel = spread_select(mask.to(x1.dtype), vote_points)
-        x1v, x2v, mv = x1[sel], x2[sel], mask[sel]
+        x1v, x2v, mv = take_rows(x1, sel), take_rows(x2, sel), take_rows(
+            mask, sel)
+        four = cands_R.shape[:-2]
         votes_s, _, _ = cheirality_counts(
-            cands_R, cands_t, x1v.expand((4,) + x1v.shape),
-            x2v.expand((4,) + x2v.shape), mv.expand((4,) + mv.shape),
-            dist_thresh,
+            cands_R, cands_t,
+            x1v[..., None, :, :].expand(four + x1v.shape[-2:]),
+            x2v[..., None, :, :].expand(four + x2v.shape[-2:]),
+            mv[..., None, :].expand(four + mv.shape[-1:]), dist_thresh,
         )
         best = torch.argmax(votes_s, dim=-1)
-        R = cands_R[best]
-        tt = cands_t[best]
+        R = take(cands_R, best)
+        tt = take(cands_t, best)
         nv, Xw, okw = cheirality_counts(R, tt, x1, x2, mask, dist_thresh)
         return R, tt, Xw, okw, nv
     x1b = x1[..., None, :, :].expand(cands_R.shape[:-2] + x1.shape[-2:])
@@ -428,12 +447,6 @@ def recover_pose(E, x1, x2, mask, dist_thresh: float = 50.0,
     votes, X, ok = cheirality_counts(cands_R, cands_t, x1b, x2b, maskb,
                                      dist_thresh)
     best = torch.argmax(votes, dim=-1)
-
-    def take(a, idx):
-        ix = idx.reshape(idx.shape + (1,) * (a.ndim - idx.ndim))
-        ix = ix.expand(idx.shape + (1,) + a.shape[idx.ndim + 1:])
-        return torch.gather(a, idx.ndim, ix).squeeze(idx.ndim)
-
     return (take(cands_R, best), take(cands_t, best), take(X, best),
             take(ok, best), take(votes, best))
 

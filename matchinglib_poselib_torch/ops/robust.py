@@ -9,11 +9,21 @@ rotation-only and no-motion families on the E-inliers);
 ``estimate_essential_autoth`` adapts the threshold between rounds of it
 (AutoThEpi).
 
+Pair axis: the default path (``ransac``, LO, the degeneracy check,
+``estimate_essential_robust``) takes an optional leading pair axis P on
+every per-pair input — x1, x2 (P, N, 2), mask and quality (P, N), the
+threshold (P,) or shared — and returns per-pair results, what
+``jax.vmap`` of the JAX package's functions returns: a loop runs until
+every pair has exited, and a pair that has exited keeps its state and
+counters.
+
 Randomness: every sampled uniform is an explicit tensor. ``ransac`` takes
-``uniforms`` of shape (max_batches, B, k) — batch i uses uniforms[i], the
-counterpart of ``jax.random.uniform(fold_in(key, i), (B, k))`` — or draws
-them from a ``torch.Generator``. The JAX package's ``lax.while_loop``s are
-Python loops that read their exit flag on the host once per iteration
+``uniforms`` of shape (max_batches, B, k), or (P, max_batches, B, k) with
+a pair axis — batch i uses uniforms[..., i, :, :], the counterpart of
+``jax.random.uniform(fold_in(key, i), (B, k))`` — or draws them from a
+``torch.Generator`` (``estimate_essential_robust``: pair by pair). The
+JAX package's ``lax.while_loop``s are Python loops that read one exit
+flag (every pair done) on the host once per iteration
 (``utils.profiling.HostSyncs``).
 """
 
@@ -42,14 +52,15 @@ class ModelFamily(NamedTuple):
     name: str
     sample_size: int
     models_per_sample: int
-    # (B, k, 2), (B, k, 2) -> (B, m, 3, 3), (B, m)
+    # (S, k, 2), (S, k, 2) -> (S, m, 3, 3), (S, m)
     solve: Callable
-    # (M, 3, 3), (N, 2), (N, 2) -> (M, N) squared residuals
+    # (..., M, 3, 3), (..., N, 2), (..., N, 2) -> (..., M, N) squared
+    # residuals
     error: Callable
 
 
 def _sampson_family_error(E, x1, x2):
-    return geo.sampson_error(E, x1[None], x2[None])
+    return geo.sampson_error(E, x1[..., None, :, :], x2[..., None, :, :])
 
 
 def essential_family(
@@ -82,12 +93,14 @@ def homography_family() -> ModelFamily:
         return H[:, None], v[:, None]
 
     def err(H, x1, x2):
-        return solvers.homography_transfer_error(H, x1[None], x2[None])
+        return solvers.homography_transfer_error(H, x1[..., None, :, :],
+                                                 x2[..., None, :, :])
 
     return ModelFamily("homography_4pt", 4, 1, solve, err)
 
 
 class RobustResult(NamedTuple):
+    # each field carries the inputs' pair axis, if any, in front
     model: torch.Tensor  # (3, 3)
     inlier_mask: torch.Tensor  # (N,) bool
     n_inliers: torch.Tensor  # int
@@ -109,29 +122,30 @@ class RobustResult(NamedTuple):
 
 def sample_without_replacement(u: torch.Tensor, pool_sizes: torch.Tensor,
                                k: int, n_total: int) -> torch.Tensor:
-    """k distinct indices in [0, pool_b) per row from uniforms u (B, k).
+    """k distinct indices in [0, pool) per row from uniforms u (..., B, k)
+    and pool sizes (..., B).
 
     Shifted-draw scheme: draw r_j in [0, pool - j) and shift it past the
     previously chosen indices in ascending order (exact uniformity, no
     rejection).
     """
-    B = pool_sizes.shape[0]
-    chosen = torch.full((B, k), n_total + 7, dtype=torch.int64,
-                        device=u.device)
+    chosen = torch.full(pool_sizes.shape + (k,), n_total + 7,
+                        dtype=torch.int64, device=u.device)
     for j in range(k):
         pool_j = torch.clamp(pool_sizes - j, min=1)
-        r = torch.minimum((u[:, j] * pool_j).to(torch.int64), pool_j - 1)
-        sorted_prev = torch.sort(chosen, dim=1).values
+        r = torch.minimum((u[..., j] * pool_j).to(torch.int64), pool_j - 1)
+        sorted_prev = torch.sort(chosen, dim=-1).values
         for jj in range(k):
-            r = torch.where(r >= sorted_prev[:, jj], r + 1, r)
-        chosen[:, j] = r
+            r = torch.where(r >= sorted_prev[..., jj], r + 1, r)
+        chosen[..., j] = r
     return chosen
 
 
 def prosac_pool_schedule(batch_idx: int, n_valid: torch.Tensor,
                          sample_size: int, max_batches: int) -> torch.Tensor:
     """Geometric sampling-pool growth per batch: from ~4x sample_size to
-    all valid matches (USAC.h generatePROSACMinSample at batch grain)."""
+    all valid matches (USAC.h generatePROSACMinSample at batch grain).
+    n_valid: valid matches, per pair with a pair axis."""
     n_valid = torch.clamp(n_valid, min=sample_size + 2)
     start = torch.clamp(n_valid, max=4 * sample_size)
     frac = torch.clamp(
@@ -150,14 +164,17 @@ def prosac_pool_schedule(batch_idx: int, n_valid: torch.Tensor,
 
 
 def _score_models(models, mvalid, err_fn, x1, x2, mask, th_sq):
-    """Score (M, 3, 3) models: inlier count with an MSAC-style truncated
-    error tiebreak. Returns (score, counts, err)."""
+    """Score (..., M, 3, 3) models: inlier count with an MSAC-style
+    truncated error tiebreak, the valid-point count taken per pair.
+    th_sq: () or (...). Returns (score, counts, err)."""
     err = err_fn(models, x1, x2)
-    maskf = mask.to(err.dtype)[None]
-    inl = (err < th_sq) & (maskf > 0)
+    maskf = mask.to(err.dtype)[..., None, :]
+    th = th_sq[..., None, None]
+    inl = (err < th) & (maskf > 0)
     counts = torch.sum(inl, dim=-1)
-    trunc = torch.sum(torch.minimum(err, th_sq) * maskf, dim=-1)
-    score = counts.to(err.dtype) - trunc / (th_sq * (torch.sum(maskf) + 1.0))
+    trunc = torch.sum(torch.minimum(err, th) * maskf, dim=-1)
+    score = counts.to(err.dtype) - trunc / (
+        th[..., 0] * (torch.sum(maskf, dim=-1) + 1.0))
     return torch.where(mvalid, score, -torch.inf), counts, err
 
 
@@ -169,7 +186,8 @@ def sample_shapes(cfg) -> tuple[tuple[int, int, int], tuple[int, int, int]]:
     """Shapes of one robust call's sample streams for a RobustConfig of
     either package: the E batches' uniforms (max_batches, B, k), k = 8
     for the 8pt solver else 5, and the degeneracy check's single
-    homography batch (1, min(B, 64), 4)."""
+    homography batch (1, min(B, 64), 4). With a pair axis, each stream
+    gains a leading P."""
     B = cfg.batch_hypotheses
     k = 8 if cfg.solver.name == "EIGHT_PT" else 5
     return (cfg.max_batches, B, k), (1, min(B, 64), 4)
@@ -193,32 +211,38 @@ def ransac(
     uniforms: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
 ) -> RobustResult:
-    """Batched robust estimation of one model on one correspondence set.
+    """Batched robust estimation of one model per correspondence set.
 
-    x1, x2: (N, 2) normalized coords (padded); mask: (N,) validity;
-    quality: (N,) higher = better (PROSAC order; None = no PROSAC).
-    uniforms: (max_batches, B, k) sample uniforms, else drawn from
-    `generator`. LMEDS and the other estimators of the JAX package's menu
-    are not ported yet.
+    x1, x2: (N, 2) normalized coords (padded), or (P, N, 2) with a pair
+    axis; mask: (..., N) validity; quality: (..., N) higher = better
+    (PROSAC order; None = no PROSAC); threshold_sq and prior_inlier_ratio:
+    shared or per pair. uniforms: (..., max_batches, B, k) sample
+    uniforms, else drawn from `generator`. Every pair runs
+    until it meets its stop rule; the loop ends when all have. LMEDS and
+    the other estimators of the JAX package's menu are not ported yet.
     """
     if cfg.estimator == PoseEstimator.LMEDS:
         raise NotImplementedError("LMEDS scoring is not ported")
     dev, dt = x1.device, x1.dtype
-    N = x1.shape[0]
+    N = x1.shape[-2]
+    batch = x1.shape[:-2]
     if threshold_sq is None:
         threshold_sq = cfg.threshold_px ** 2
-    th_sq = torch.as_tensor(threshold_sq, dtype=dt, device=dev)
+    th_sq = torch.as_tensor(threshold_sq, dtype=dt, device=dev).expand(batch)
     B = cfg.batch_hypotheses
     k = family.sample_size
+    m = family.models_per_sample
     if uniforms is None:
-        uniforms = draw_uniforms(generator, (cfg.max_batches, B, k), dev)
+        uniforms = draw_uniforms(generator, batch + (cfg.max_batches, B, k),
+                                 dev)
 
     maskb = mask.to(torch.bool)
-    n_valid = torch.sum(maskb.to(torch.int64))
+    n_valid = torch.sum(maskb.to(torch.int64), dim=-1)
     use_prosac = quality is not None and cfg.prosac
-    q = quality.to(dt) if use_prosac else torch.zeros((N,), dtype=dt,
-                                                      device=dev)
-    order = torch.argsort(torch.where(maskb, -q, torch.inf), stable=True)
+    q = quality.to(dt) if use_prosac else torch.zeros(
+        maskb.shape, dtype=dt, device=dev)
+    order = torch.argsort(torch.where(maskb, -q, torch.inf), dim=-1,
+                          stable=True)
 
     log_conf = torch.log(_f32(1.0 - cfg.confidence, x1))
     if prior_inlier_ratio is not None:
@@ -228,42 +252,54 @@ def ransac(
         hyp_needed = log_conf / torch.log1p(
             -torch.clamp(eps**k, 1e-12, 1.0 - 1e-7))
 
-    best_score = torch.tensor(-torch.inf, dtype=dt, device=dev)
-    best_count = torch.zeros((), dtype=torch.int64, device=dev)
-    best_model = torch.eye(3, dtype=dt, device=dev)
-    n_rej = torch.zeros((), dtype=torch.int64, device=dev)
-    i = 0
-    while i < cfg.max_batches:
+    best_score = torch.full(batch, -torch.inf, dtype=dt, device=dev)
+    best_count = torch.zeros(batch, dtype=torch.int64, device=dev)
+    best_model = torch.eye(3, dtype=dt, device=dev).expand(batch + (3, 3))
+    n_rej = torch.zeros(batch, dtype=torch.int64, device=dev)
+    n_batches = torch.zeros(batch, dtype=torch.int64, device=dev)
+    # pairs still sampling; one that has stopped keeps its state
+    live = torch.ones(batch, dtype=torch.bool, device=dev)
+    for i in range(cfg.max_batches):
         # zero-inlier threshold inflation (USAC.h:355-364)
         if cfg.inflate_th_on_failure:
-            if i == cfg.max_batches // 2:
-                th_sq = torch.where(best_count <= k, th_sq * (1.33**2), th_sq)
-            if i == (2 * cfg.max_batches) // 3:
-                th_sq = torch.where(best_count <= k, th_sq * (1.13**2), th_sq)
+            for at, f in ((cfg.max_batches // 2, 1.33),
+                          ((2 * cfg.max_batches) // 3, 1.13)):
+                if i == at:
+                    th_sq = torch.where(live & (best_count <= k),
+                                        th_sq * (f**2), th_sq)
+        full = torch.clamp(n_valid, min=k)[..., None]
         if use_prosac:
-            pool = prosac_pool_schedule(i, n_valid, k, cfg.max_batches)
-            pool = pool.expand(B).clone()
             # half of every batch samples the full valid pool: the
             # confidence stop assumes full-population draws
-            pool[B // 2:] = torch.clamp(n_valid, min=k)
+            pool = prosac_pool_schedule(i, n_valid, k, cfg.max_batches)
+            pool = torch.cat([pool[..., None].expand(batch + (B // 2,)),
+                              full.expand(batch + (B - B // 2,))], dim=-1)
         else:
-            pool = torch.clamp(n_valid, min=k).expand(B)
-        idx = order[sample_without_replacement(uniforms[i], pool, k, N)]
-        models, mvalid = family.solve(x1[idx], x2[idx])
-        M = B * family.models_per_sample
-        models = models.reshape(M, 3, 3)
-        mvalid = mvalid.reshape(M)
+            pool = full.expand(batch + (B,))
+        picks = sample_without_replacement(uniforms[..., i, :, :], pool, k, N)
+        idx = geo.take_rows(order, picks.reshape(batch + (B * k,)))
+        s1 = geo.take_rows(x1, idx).reshape(-1, k, 2)
+        s2 = geo.take_rows(x2, idx).reshape(-1, k, 2)
+        models, mvalid = family.solve(s1, s2)
+        models = models.reshape(batch + (B * m, 3, 3))
+        mvalid = mvalid.reshape(batch + (B * m,))
         score, counts, _ = _score_models(
             models, mvalid, family.error, x1, x2, maskb, th_sq
         )
-        best = torch.argmax(score)
-        n_rej = n_rej + torch.sum(~mvalid)
-        better = score[best] > best_score
-        best_score = torch.where(better, score[best], best_score)
-        best_count = torch.where(better, counts[best], best_count)
-        best_model = torch.where(better, models[best], best_model)
+        best = torch.argmax(score, dim=-1)[..., None]
+        n_rej = n_rej + torch.where(live, torch.sum(~mvalid, dim=-1), 0)
+        b_score = torch.gather(score, -1, best)[..., 0]
+        better = live & (b_score > best_score)
+        best_score = torch.where(better, b_score, best_score)
+        best_count = torch.where(better, torch.gather(counts, -1, best)[
+            ..., 0], best_count)
+        best_model = torch.where(
+            better[..., None, None],
+            torch.take_along_dim(models, best[..., None, None], dim=-3)[
+                ..., 0, :, :],
+            best_model)
         # adaptive stopping: P(miss) = (1 - w^k)^(hyps so far) < 1 - conf
-        n_hyp = _f32((i + 1.0) * B * family.models_per_sample, x1)
+        n_hyp = _f32((i + 1.0) * B * m, x1)
         w = best_count.to(torch.float32) / torch.clamp(
             n_valid.to(torch.float32), min=1.0)
         log_pmiss = n_hyp * torch.log1p(
@@ -277,16 +313,17 @@ def ransac(
                 & (best_count > k)
             )
             done = done | prior_ok
-        i += 1
-        if HostSyncs.read(done):
+        n_batches = n_batches + live.to(torch.int64)
+        live = live & ~done
+        if not HostSyncs.read(torch.any(live), "ransac", i):
             break
 
-    err = family.error(best_model[None], x1, x2)[0]
-    inl = (err < th_sq) & maskb
-    n_inl = torch.sum(inl)
+    err = family.error(best_model[..., None, :, :], x1, x2)[..., 0, :]
+    inl = (err < th_sq[..., None]) & maskb
+    n_inl = torch.sum(inl, dim=-1)
     ratio = n_inl.to(torch.float32) / torch.clamp(
         n_valid.to(torch.float32), min=1.0)
-    n_generated = torch.tensor(i * B * family.models_per_sample, device=dev)
+    n_generated = n_batches * (B * m)
     return RobustResult(
         model=best_model,
         inlier_mask=inl,
@@ -294,25 +331,26 @@ def ransac(
         inlier_ratio=ratio,
         score=best_score,
         threshold=th_sq,
-        n_batches=torch.tensor(i, device=dev),
+        n_batches=n_batches,
         n_hypotheses=n_generated,
         n_models_generated=n_generated,
         n_models_rejected=n_rej,
         n_points_verified=(n_generated - n_rej) * n_valid,
-        n_lo_refinements=torch.zeros((), dtype=torch.int64, device=dev),
+        n_lo_refinements=torch.zeros(batch, dtype=torch.int64, device=dev),
     )
 
 
 def _inv_sim(T: torch.Tensor) -> torch.Tensor:
-    """Inverse of the similarity [[s, 0, tx], [0, s, ty], [0, 0, 1]]."""
-    s = T[0, 0]
+    """Inverse of the similarity [[s, 0, tx], [0, s, ty], [0, 0, 1]]
+    (..., 3, 3)."""
+    s = T[..., 0, 0]
     z = torch.zeros_like(s)
     o = torch.ones_like(s)
     return torch.stack([
-        torch.stack([1.0 / s, z, -T[0, 2] / s]),
-        torch.stack([z, 1.0 / s, -T[1, 2] / s]),
-        torch.stack([z, z, o]),
-    ])
+        torch.stack([1.0 / s, z, -T[..., 0, 2] / s], dim=-1),
+        torch.stack([z, 1.0 / s, -T[..., 1, 2] / s], dim=-1),
+        torch.stack([z, z, o], dim=-1),
+    ], dim=-2)
 
 
 # ---------------------------------------------------------------------------
@@ -324,8 +362,11 @@ def lo_refine_essential(result: RobustResult, x1, x2, mask,
                         iterations: int = 4) -> RobustResult:
     """Iterative pseudo-Huber-weighted 8pt re-fit on the current inliers
     (USAC.h locallyOptimizeSolution); keeps a re-fit only if the inlier
-    count does not drop, and stops once a re-fit reproduces the model."""
+    count does not drop, and stops once a re-fit reproduces the model
+    (per pair with a pair axis: a pair that has stopped keeps its model,
+    mask and count)."""
     th = result.threshold
+    batch = x1.shape[:-2]
     maskb = mask.to(torch.bool)
     inl0f = result.inlier_mask.to(x1.dtype)
     x1n, T1 = geo.normalize_points(x1, inl0f)
@@ -334,33 +375,40 @@ def lo_refine_essential(result: RobustResult, x1, x2, mask,
     T2t = T2.transpose(-1, -2)
 
     model, inl, n_inl = result.model, result.inlier_mask, result.n_inliers
-    n_lo = torch.zeros((), dtype=torch.int64, device=x1.device)
-    ns_prev = (_inv_sim(T2).T @ result.model @ _inv_sim(T1)).reshape(9)
-    for _ in range(iterations):
+    n_lo = torch.zeros(batch, dtype=torch.int64, device=x1.device)
+    ns_prev = (_inv_sim(T2).transpose(-1, -2) @ result.model
+               @ _inv_sim(T1)).reshape(batch + (9,))
+    live = torch.ones(batch, dtype=torch.bool, device=x1.device)
+    b2 = torch.clamp(th, min=1e-20)[..., None]
+    for it in range(iterations):
         err = geo.sampson_error(model, x1, x2)
-        b2 = torch.clamp(th, min=1e-20)
         w = 1.0 / torch.sqrt(torch.sqrt(1.0 + err / b2))
         w = w * inl.to(w.dtype)
-        Aw = A_rows * w[:, None]
-        ns = smalllinalg.min_eigvec_spd(Aw.T @ Aw, iterations=2, v0=ns_prev)
-        E_new = T2t @ ns.reshape(3, 3) @ T1
-        nrm = torch.sqrt(torch.sum(E_new * E_new))
-        ok = torch.isfinite(nrm) & (nrm > 1e-12)
-        E_new = torch.where(ok, E_new / torch.clamp(nrm, min=1e-12), model)
-        inl_new = (geo.sampson_error(E_new, x1, x2) < th) & maskb
-        n_new = torch.sum(inl_new)
+        Aw = A_rows * w[..., None]
+        ns = smalllinalg.min_eigvec_spd(Aw.transpose(-1, -2) @ Aw,
+                                        iterations=2, v0=ns_prev)
+        E_new = T2t @ ns.reshape(batch + (3, 3)) @ T1
+        nrm = torch.sqrt(torch.sum(E_new * E_new, dim=(-2, -1)))
+        ok = live & torch.isfinite(nrm) & (nrm > 1e-12)
+        E_new = torch.where(
+            ok[..., None, None],
+            E_new / torch.clamp(nrm, min=1e-12)[..., None, None], model)
+        inl_new = (geo.sampson_error(E_new, x1, x2) < th[..., None]) & maskb
+        n_new = torch.sum(inl_new, dim=-1)
         keep = ok & (n_new >= n_inl)
-        d1 = torch.sum((E_new - model) ** 2)
-        d2 = torch.sum((E_new + model) ** 2)
+        d1 = torch.sum((E_new - model) ** 2, dim=(-2, -1))
+        d2 = torch.sum((E_new + model) ** 2, dim=(-2, -1))
         done = keep & (torch.minimum(d1, d2) < 1e-14)
-        model = torch.where(keep, E_new, model)
-        inl = torch.where(keep, inl_new, inl)
+        model = torch.where(keep[..., None, None], E_new, model)
+        inl = torch.where(keep[..., None], inl_new, inl)
         n_inl = torch.where(keep, n_new, n_inl)
         n_lo = n_lo + keep.to(torch.int64)
-        ns_prev = torch.where(ok, ns, ns_prev)
-        if HostSyncs.read(done):
+        ns_prev = torch.where(ok[..., None], ns, ns_prev)
+        live = live & ~done
+        if not HostSyncs.read(torch.any(live), "lo", it):
             break
-    n_valid = torch.clamp(torch.sum(maskb.to(torch.float32)), min=1.0)
+    n_valid = torch.clamp(torch.sum(maskb.to(torch.float32), dim=-1),
+                          min=1.0)
     return result._replace(
         model=model, inlier_mask=inl, n_inliers=n_inl,
         inlier_ratio=n_inl.to(torch.float32) / n_valid,
@@ -413,8 +461,9 @@ def analyze_degeneracy(E_result: RobustResult, x1, x2, mask,
                        cfg: RobustConfig, uniforms=None,
                        generator=None) -> DegeneracyResult:
     """Score H / rotation-only / no-motion families on the E-inliers
-    (pose_estim.cpp:1983-2130 decision rule). uniforms: (1, Bh, 4) for the
-    one-batch homography RANSAC, Bh = min(batch_hypotheses, 64)."""
+    (pose_estim.cpp:1983-2130 decision rule). uniforms: (..., 1, Bh, 4)
+    for the one-batch homography RANSAC, Bh = min(batch_hypotheses,
+    64)."""
     th = E_result.threshold
     inl = E_result.inlier_mask
     n_inl = torch.clamp(E_result.n_inliers.to(torch.float32), min=1.0)
@@ -438,20 +487,20 @@ def analyze_degeneracy(E_result: RobustResult, x1, x2, mask,
     pr = b1r[..., :2] / torch.clamp(torch.abs(b1r[..., 2:]), min=1e-9) * (
         torch.sign(b1r[..., 2:]))
     rot_err = torch.sum((pr - x2) ** 2, dim=-1)
-    rot_inl = (rot_err < th) & inl
-    rot_frac = torch.sum(rot_inl).to(torch.float32) / n_inl
+    rot_inl = (rot_err < th[..., None]) & inl
+    rot_frac = torch.sum(rot_inl, dim=-1).to(torch.float32) / n_inl
 
     static_err = torch.sum((x2 - x1) ** 2, dim=-1)
-    static_inl = (static_err < th) & inl
-    static_frac = torch.sum(static_inl).to(torch.float32) / n_inl
+    static_inl = (static_err < th[..., None]) & inl
+    static_frac = torch.sum(static_inl, dim=-1).to(torch.float32) / n_inl
 
     ratio = cfg.degen_decision_ratio
     is_degen = (h_frac > ratio) | (rot_frac > ratio) | (static_frac > ratio)
     return DegeneracyResult(
         is_degenerate=is_degen, h_fraction=h_frac, rot_fraction=rot_frac,
         static_fraction=static_frac, H=hres.model, R_rotonly=R_ro,
-        h_inliers=hres.n_inliers, rot_inliers=torch.sum(rot_inl),
-        static_inliers=torch.sum(static_inl),
+        h_inliers=hres.n_inliers, rot_inliers=torch.sum(rot_inl, dim=-1),
+        static_inliers=torch.sum(static_inl, dim=-1),
     )
 
 
@@ -476,12 +525,25 @@ def estimate_essential_robust(
     """Robust E: RANSAC/PROSAC batches + LO refinement + support-guarded
     projection + degeneracy check (estimateEssentialMat,
     pose_estim.cpp:857,1737). Returns (RobustResult, DegeneracyResult |
-    None).
+    None). Takes an optional leading pair axis (``ransac``).
 
-    uniforms: (max_batches, B, k) for the E batches; degen_uniforms:
-    (1, min(B, 64), 4) for the degeneracy H batch (the JAX package's
-    fold_in(key, 777) stream); either, when None, comes from `generator`.
+    uniforms: (..., max_batches, B, k) for the E batches; degen_uniforms:
+    (..., 1, min(B, 64), 4) for the degeneracy H batch (the JAX package's
+    fold_in(key, 777) stream); either, when None, comes from `generator`,
+    pair by pair in pair order: the pair's E stream, then its degeneracy
+    stream (what as many single-pair calls draw).
     """
+    need_degen = cfg.check_degeneracy and degen_uniforms is None
+    if x1.ndim == 3 and (uniforms is None or need_degen):
+        e_shape, d_shape = sample_shapes(cfg)
+        us, ds = [], []
+        for _ in range(x1.shape[0]):
+            if uniforms is None:
+                us.append(draw_uniforms(generator, e_shape, x1.device))
+            if need_degen:
+                ds.append(draw_uniforms(generator, d_shape, x1.device))
+        uniforms = torch.stack(us) if us else uniforms
+        degen_uniforms = torch.stack(ds) if ds else degen_uniforms
     if cfg.solver == MinimalSolver.EIGHT_PT:
         family = essential_8pt_family()
     else:
@@ -496,13 +558,14 @@ def estimate_essential_robust(
         # below the pre-LO support (the raw-DLT chain can drift toward a
         # fundamental-matrix solution), else restore the ransac winner
         E_proj = geo.closest_essential(res.model)
-        inl_p = (geo.sampson_error(E_proj, x1, x2) < res.threshold) & (
-            mask.to(torch.bool))
-        n_p = torch.sum(inl_p)
+        inl_p = (geo.sampson_error(E_proj, x1, x2)
+                 < res.threshold[..., None]) & mask.to(torch.bool)
+        n_p = torch.sum(inl_p, dim=-1)
         keep_lo = n_p >= res0.n_inliers
         res = res._replace(
-            model=torch.where(keep_lo, E_proj, res0.model),
-            inlier_mask=torch.where(keep_lo, inl_p, res0.inlier_mask),
+            model=torch.where(keep_lo[..., None, None], E_proj, res0.model),
+            inlier_mask=torch.where(keep_lo[..., None], inl_p,
+                                    res0.inlier_mask),
             n_inliers=torch.where(keep_lo, n_p, res0.n_inliers),
             n_lo_refinements=torch.where(
                 keep_lo, res.n_lo_refinements,
@@ -603,7 +666,7 @@ def estimate_essential_autoth(
             th_new / torch.clamp(th, min=1e-12) < 0.9)
         converged = ~moved | (res.inlier_ratio >= 0.67)
         th = th_new
-        if HostSyncs.read(converged):
+        if HostSyncs.read(converged, "auto_th", r):
             break
     n_rounds = torch.full((), r + 1, dtype=torch.int32, device=dev)
 

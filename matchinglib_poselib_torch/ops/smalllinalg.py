@@ -179,38 +179,39 @@ def svd3x3(
 def chol_solve_unrolled(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Solve A X = B for SPD A (static NxN, N small) via unrolled Cholesky.
 
-    A: (N, N); B: (N,) or (N, K).
+    A: (..., N, N); B: (..., N) or (..., N, K), with the same leading
+    dims as A.
     """
-    n = A.shape[0]
-    vec = B.ndim == 1
+    n = A.shape[-1]
+    vec = B.ndim == A.ndim - 1
     if vec:
-        B = B[:, None]
+        B = B[..., None]
     L = [[None] * n for _ in range(n)]
     for j in range(n):
-        s = A[j, j]
+        s = A[..., j, j]
         for k in range(j):
             s = s - L[j][k] * L[j][k]
         d = torch.sqrt(torch.clamp(s, min=1e-30))
         L[j][j] = d
         for i in range(j + 1, n):
-            s = A[i, j]
+            s = A[..., i, j]
             for k in range(j):
                 s = s - L[i][k] * L[j][k]
             L[i][j] = s / d
     Y = [None] * n
     for i in range(n):
-        s = B[i]
+        s = B[..., i, :]
         for k in range(i):
-            s = s - L[i][k] * Y[k]
-        Y[i] = s / L[i][i]
+            s = s - L[i][k][..., None] * Y[k]
+        Y[i] = s / L[i][i][..., None]
     X = [None] * n
     for i in reversed(range(n)):
         s = Y[i]
         for k in range(i + 1, n):
-            s = s - L[k][i] * X[k]
-        X[i] = s / L[i][i]
-    out = torch.stack(X)
-    return out[:, 0] if vec else out
+            s = s - L[k][i][..., None] * X[k]
+        X[i] = s / L[i][i][..., None]
+    out = torch.stack(X, dim=-2)
+    return out[..., 0] if vec else out
 
 
 def min_eigvec_spd(
@@ -218,21 +219,28 @@ def min_eigvec_spd(
 ) -> torch.Tensor:
     """Smallest eigenvector of a PSD NxN (static N) by inverse iteration.
 
-    v0: optional warm start, blended with the all-ones start so that a
-    near-orthogonal all-ones vector cannot stall the iteration.
+    A: (..., N, N) -> (..., N). v0: optional warm start (..., N), blended
+    with the all-ones start so that a near-orthogonal all-ones vector
+    cannot stall the iteration; a start that is not finite is replaced by
+    the all-ones start, matrix by matrix.
     """
-    n = A.shape[0]
-    ridge = 1e-6 * torch.trace(A) / n + 1e-30
-    As = A + ridge * torch.eye(n, dtype=A.dtype, device=A.device)
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    ridge = 1e-6 * torch.diagonal(A, dim1=-2, dim2=-1).sum(-1) / n + 1e-30
+    As = A + ridge[..., None, None] * eye
     ones = torch.ones((n,), dtype=A.dtype, device=A.device) / math.sqrt(n)
     if v0 is None:
-        v = ones
+        v = ones.expand(A.shape[:-1])
     else:
-        v0n = v0 / torch.sqrt(torch.clamp(torch.sum(v0 * v0), min=1e-38))
+        v0n = v0 / torch.sqrt(torch.clamp(
+            torch.sum(v0 * v0, dim=-1, keepdim=True), min=1e-38))
         v = v0n + 0.125 * ones
-        v = torch.where(torch.all(torch.isfinite(v)), v, ones)
-        v = v / torch.sqrt(torch.clamp(torch.sum(v * v), min=1e-38))
+        v = torch.where(torch.all(torch.isfinite(v), dim=-1, keepdim=True),
+                        v, ones)
+        v = v / torch.sqrt(torch.clamp(torch.sum(v * v, dim=-1, keepdim=True),
+                                       min=1e-38))
     for _ in range(iterations):
         v = chol_solve_unrolled(As, v)
-        v = v / torch.sqrt(torch.clamp(torch.sum(v * v), min=1e-38))
+        v = v / torch.sqrt(torch.clamp(torch.sum(v * v, dim=-1, keepdim=True),
+                                       min=1e-38))
     return v

@@ -9,7 +9,9 @@ launched it, the role ``block_until_ready`` plays in the JAX package.
 ``HostSyncs`` counts the host reads of device values: the data-dependent
 loop exits (the JAX package's ``lax.while_loop`` exits) and the values
 the streaming framework's decisions read on the host (``fetch``): one
-sync each.
+sync each. Inside ``HostSyncs.traced()`` every read also notes its site
+and the loop iteration it ends; ``loop_iterations`` turns that log into
+the iterations of each run of each loop.
 """
 
 from __future__ import annotations
@@ -24,17 +26,51 @@ class HostSyncs:
     """Count of host reads of device values."""
 
     count = 0
+    # (site, step) of every read while ``traced`` holds it, else None
+    log: list | None = None
 
     @classmethod
-    def read(cls, flag: torch.Tensor) -> bool:
+    def _note(cls, site: str | None, step: int) -> None:
         cls.count += 1
+        if cls.log is not None:
+            cls.log.append((site, step))
+
+    @classmethod
+    def read(cls, flag: torch.Tensor, site: str | None = None,
+             step: int = 0) -> bool:
+        """`flag` on the host. site: the loop that reads it; step: the
+        iteration it ends (0 starts a run of that loop)."""
+        cls._note(site, step)
         return bool(flag)
 
     @classmethod
     def fetch(cls, x: torch.Tensor):
         """A tensor's values as a numpy array on the host."""
-        cls.count += 1
+        cls._note("fetch", 0)
         return x.detach().cpu().numpy()
+
+    @classmethod
+    @contextlib.contextmanager
+    def traced(cls):
+        """Log the reads made inside the block; yields the log."""
+        outer, cls.log = cls.log, []
+        try:
+            yield cls.log
+        finally:
+            cls.log = outer
+
+
+def loop_iterations(log: list) -> dict:
+    """{(site, k): iterations} of the k-th run (from 1) of each loop in a
+    ``HostSyncs.traced`` log."""
+    runs: dict = {}
+    out: dict = {}
+    for site, step in log:
+        if step == 0:
+            runs[site] = runs.get(site, 0) + 1
+        key = (site, runs.get(site, 1))
+        out[key] = out.get(key, 0) + 1
+    return out
 
 
 def _cuda_device(x: Any):

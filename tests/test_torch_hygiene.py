@@ -20,8 +20,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_port_runs_without_importing_jax():
     """A fresh interpreter imports the port and chip_smoke, runs the plain
-    pipeline at the FAST/ORB and the SIFT/SIFT + GMS configs, one
-    estimate_pose per pose branch (AutoTh, Halign, BA, Kneip), two frames
+    pipeline at the FAST/ORB and the SIFT/SIFT + GMS configs, run_batch on
+    two small pairs, one estimate_pose per pose branch (AutoTh, Halign,
+    BA, Kneip), two frames
     of StereoRefine at chip_smoke's stream config (a small pool) with a
     checkpoint round trip, and the FileStorage readers, and never imports
     jax."""
@@ -45,6 +46,13 @@ def test_port_runs_without_importing_jax():
                               torch.zeros(5), torch.zeros(5),
                               torch.Generator().manual_seed(0))
         assert pose.R.shape == (3, 3) and bool(torch.isfinite(pose.R).all())
+        img3, img4, _, _, _ = chip_smoke.render_scene(1, 192, 96)
+        corr, pose = pipe.run_batch(np.stack([img1, img3]),
+                                    np.stack([img2, img4]), K, K,
+                                    np.zeros(5), np.zeros(5),
+                                    torch.Generator().manual_seed(0))
+        assert pose.R.shape == (2, 3, 3) and corr.mask.shape == (2, 64)
+        assert bool(torch.isfinite(pose.R).all())
         pipe = pipeline.StereoPipeline(
             c.DetectorConfig(kind="SIFT", max_keypoints=64),
             c.DescriptorConfig(kind="SIFT"),
@@ -274,6 +282,44 @@ def test_pose_branches_card_vs_cpu():
         if name == "BA":
             assert not chip_smoke.sync_free_checks(torch, corr, pose, Kt,
                                                    dist)
+
+
+@pytest.mark.gpu
+def test_run_batch_card_vs_cpu():
+    """chip_smoke.py phase 7's checks at a small size: run_batch of three
+    pairs of the sequence on the card (K1 once, K2a twice per pair), each
+    pair equal to run of that pair on the card, and the batch's pose stage
+    on the CPU from the card's correspondences."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke
+    from matchinglib_poselib_torch import config as c
+    from matchinglib_poselib_torch.models import pipeline
+    from matchinglib_poselib_torch.ops import robust
+
+    pairs, K, _, _ = chip_smoke.render_sequence(0, 3, 480, 240)
+    cfg = c.PoseConfig(robust=c.RobustConfig(batch_hypotheses=32,
+                                             max_batches=4))
+    U, D = chip_smoke.batch_streams(torch, robust, cfg, 0, len(pairs))
+    pipe = pipeline.StereoPipeline(
+        c.DetectorConfig(max_keypoints=512, fast_threshold=12.0),
+        pose_cfg=cfg)
+    args = (K, K, np.zeros(5), np.zeros(5))
+    kernels.reset_launch_counts()
+    corr, pose = pipe.run_batch(np.stack([a for a, _ in pairs]),
+                                np.stack([b for _, b in pairs]), *args,
+                                uniforms=U, degen_uniforms=D)
+    counts = kernels.launch_counts()
+    assert counts["fast_nms"] == 1 and counts["knn2"] == 2 * len(pairs)
+    singles = [pipe.run(a, b, *args, uniforms=U[i], degen_uniforms=D[i])
+               for i, (a, b) in enumerate(pairs)]
+    _, fails = chip_smoke.batch_vs_run(torch, corr, pose, singles)
+    assert not fails, fails
+    Kt = torch.from_numpy(K).cuda()
+    _, fails = chip_smoke.batch_card_vs_cpu(
+        torch, pipeline, corr, pose, Kt, torch.zeros(5, device="cuda"), cfg,
+        (U, D))
+    assert not fails, fails
 
 
 @pytest.mark.gpu
