@@ -42,7 +42,8 @@ Phases (any failure exits non-zero):
   4c. SURF/SURF + GMBSOF, one run: the float 2-NN kernel twice, accuracy
      bars;
   4d. the pose menu at the flagship config (``pose_menu``): AutoTh,
-     Halign, stereo BA (20 iterations) and the Kneip polish, each with
+     Halign, stereo BA (20 iterations), the Kneip polish, LMEDS and the
+     Stewenius solver, each with
      explicit seeded sample streams (``pose_streams``): warm run, timed
      runs, K1 and K2a twice each, accuracy bars (Halign: the JAX
      package's 3 / 10 deg, whichever branch decided), then the pose stage
@@ -50,6 +51,14 @@ Phases (any failure exits non-zero):
      streams (``check_pose_card_vs_cpu``); ``bundle_adjust`` and the
      eigensolver's Newton loop on the card under
      ``torch.cuda.set_sync_debug_mode("error")`` (``check_no_host_sync``);
+  4e. the matching menu (``match_menu``, ``match_phase``): the flagship
+     config with sub-pixel refinement and VFC, and the FLANN matcher with
+     the SOF filter, each with seeded explicit streams: warm run, timed
+     runs, K1 2 and K2a 2 / 1 launches, accuracy bars, the CPU path's
+     slots agree with the card's; each filter again on the card and on
+     the CPU from the card's correspondences before the filters
+     (``filters_card_vs_cpu``): subpix shifts within 1e-3 px, VFC and
+     SOF-filter masks on >= 99% of the slots;
   6. the stream (``stream_phase``): ``StereoRefine`` at the
      ``poselib-test --stereoRef`` defaults (``stereo_ref_config``: a pool
      of 30,000) over a seeded 10-frame sequence of the scene
@@ -79,7 +88,13 @@ Phases (any failure exits non-zero):
      most the sum, over the runs of each data-dependent loop, of the most
      iterations any pair takes there alone, plus 2; the pose stage's
      device ops at most 1.5x the costliest pair's alone; timed batches
-     beside the 8 pairs run one by one.
+     beside the 8 pairs run one by one;
+  7b. the batch with options (``batch_options_phase``): ``run_batch`` on
+     the sequence's first 2 pairs with sub-pixel refinement, VFC, LMEDS
+     and the Stewenius solver together, seeded explicit streams: K1 once,
+     K2a twice per pair, both pairs within the accuracy bars, each equal
+     to ``run`` of that pair on the card (slots 100%, inlier masks equal,
+     0.01 / 0.05 deg).
 
 Prints a JSON ``kernels`` line, one JSON ``step`` line per path, the
 card's name and power limit, and as its last line
@@ -112,6 +127,12 @@ POSE_TIMED_RUNS = 5
 POSE_ROT_DEG, POSE_TANG_DEG = 0.1, 0.5
 POSE_INLIER_AGREE = 0.99
 AUTOTH_TH_RTOL = 1e-4
+# phase 4e: card vs CPU on each filter from the same correspondences
+# (subpix shifts in px; shares of valid / all slots)
+SUBPIX_SHIFT_TOL = 1e-3
+FILTER_AGREE = 0.99
+# phase 7b: pairs of the sequence run as one batch with the options
+BATCH_OPTION_PAIRS = 2
 # published H100 SXM peaks (NVIDIA H100 datasheet; CUDA C++
 # Programming Guide throughput table, compute capability 9.0)
 HBM_BYTES_S = 3.35e12
@@ -345,12 +366,12 @@ def _device_ms(torch, fn, iters=10, tries=3):
     return _device_profile(torch, fn, iters, tries)[0]
 
 
-def _profile_step(torch, step):
-    """One step under torch.profiler: (device-busy ms = summed device
-    time of its kernels and copies, number of device ops, wall ms of the
-    profiled step, which the profiler itself slows). Device activity only:
-    the host ops' events would double what ``key_averages`` sorts (~80 us
-    per event on the host), and the device numbers do not need them."""
+def _device_events(torch, step):
+    """One call of `step` under torch.profiler, device activity only (the
+    host ops' events would double what ``key_averages`` sorts, ~80 us per
+    event on the host, and the device numbers do not need them): (its
+    device events by summed device time, wall ms of the profiled call,
+    which the profiler itself slows)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -359,10 +380,31 @@ def _profile_step(torch, step):
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.key_averages()
-              if e.device_type.name == "CUDA"]
+    device = sorted((e for e in prof.key_averages()
+                     if e.device_type.name == "CUDA"),
+                    key=lambda e: -e.self_device_time_total)
+    return device, wall_ms
+
+
+def _profile_step(torch, step):
+    """One step under torch.profiler: (device-busy ms = summed device
+    time of its kernels and copies, number of device ops, wall ms of the
+    profiled step)."""
+    device, wall_ms = _device_events(torch, step)
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
     return busy_ms, sum(e.count for e in device), wall_ms
+
+
+def _kernel_split(torch, fn, top=6):
+    """A warm call of `fn`, then one under torch.profiler: (device-busy
+    ms, device ops, [[kernel name, ms, launches]] of its `top` kernels by
+    summed device time)."""
+    fn()
+    device, _ = _device_events(torch, fn)
+    return (sum(e.self_device_time_total for e in device) / 1e3,
+            sum(e.count for e in device),
+            [[e.key[:80], e.self_device_time_total / 1e3, e.count]
+             for e in device[:top]])
 
 
 def _nvidia_smi() -> str:
@@ -823,8 +865,10 @@ def cpu_agreement(torch, pipeline, corr, img1, img2, det, desc, match):
             "partners": partners}
 
 
-def pose_menu(cfg):
-    """Phase 4d's branches: (name, PoseConfig changes, accuracy bars)."""
+def pose_menu(cfg, robust):
+    """Phase 4d's branches: (name, PoseConfig changes, accuracy bars); the
+    robust menu's rows change `robust` (the RobustConfig they start
+    from)."""
     return (
         ("AutoTh", dict(auto_th=True), (MAX_ROT_DEG, MAX_TANG_DEG)),
         # the JAX package's own bars for Halign
@@ -834,7 +878,97 @@ def pose_menu(cfg):
          (MAX_ROT_DEG, MAX_TANG_DEG)),
         ("Kneip", dict(refine=cfg.RefinementConfig(
             solver=cfg.MinimalSolver.KNEIP)), (MAX_ROT_DEG, MAX_TANG_DEG)),
+        ("LMEDS", dict(robust=dataclasses.replace(
+            robust, estimator=cfg.PoseEstimator.LMEDS)),
+         (MAX_ROT_DEG, MAX_TANG_DEG)),
+        ("Stewenius", dict(robust=dataclasses.replace(
+            robust, solver=cfg.MinimalSolver.STEWENIUS_5PT)),
+         (MAX_ROT_DEG, MAX_TANG_DEG)),
     )
+
+
+def match_menu(cfg, match):
+    """Phase 4e's matching options: (name, MatchingConfig, launches of
+    each kernel on the path). `match`: the flagship's MatchingConfig."""
+    return (
+        ("subpix+VFC", dataclasses.replace(match, subpix_refine=True,
+                                           vfc_filter=True),
+         {"fast_nms": 2, "knn2": 2, "knn2_l2": 0}),
+        # a matcher other than GMBSOF: the ratio pass only, one K2a launch
+        ("SOF filter", cfg.MatchingConfig(matcher_name="FLANN",
+                                          sof_filter=True),
+         {"fast_nms": 2, "knn2": 1, "knn2_l2": 0}),
+    )
+
+
+def filters_card_vs_cpu(torch, pipeline, img1, img2, det, desc, match):
+    """Each filter of `match` again on the card and on the CPU from the
+    same inputs: the card's correspondences before the filters, and for
+    VFC the card's refined points. Sub-pixel refinement: shifts within
+    SUBPIX_SHIFT_TOL px on >= FILTER_AGREE of the valid slots, success on
+    >= FILTER_AGREE of the slots, pass_ok equal; VFC and the SOF filter:
+    masks on >= FILTER_AGREE of the slots. On the card, subpix and VFC
+    are also profiled alone (``_kernel_split``). Returns (record,
+    failures)."""
+    from matchinglib_poselib_torch.ops import filters, subpix
+
+    pre = pipeline.get_correspondences(
+        img1, img2, det, desc, dataclasses.replace(
+            match, sof_filter=False, subpix_refine=False, vfc_filter=False))
+    shape = tuple(img1.shape)
+    cpu = {k: getattr(pre, k).cpu() for k in ("pts1", "pts2", "mask")}
+    valid = cpu["mask"]
+    rec = {"slots_in": int(valid.sum())}
+    failures = []
+
+    def share(name, a, b, over=None):
+        same = (a.cpu() == b) if over is None else over
+        rec[name] = float(same.float().mean())
+        if rec[name] < FILTER_AGREE:
+            failures.append(f"card vs CPU {name}: {rec[name]:.4f}")
+
+    pts2 = pre.pts2
+    if match.sof_filter and match.matcher_name.upper() != "GMBSOF":
+        kw = dict(cell_px=match.sof_grid_px,
+                  validation_th=match.sof_validation_th)
+        sof = filters.sof_filter_matches(pre.pts1, pre.pts2, pre.mask,
+                                         shape, **kw)
+        share("sof_filter_mask", sof, filters.sof_filter_matches(
+            cpu["pts1"], cpu["pts2"], cpu["mask"], shape, **kw))
+        rec["sof_filter_kept"] = int(sof.sum())
+    if match.subpix_refine:
+        sp = subpix.refine_matches_subpix(img1, img2, pre.pts1, pre.pts2,
+                                          pre.mask)
+        sp_cpu = subpix.refine_matches_subpix(
+            img1.cpu(), img2.cpu(), cpu["pts1"], cpu["pts2"], cpu["mask"])
+        close = (sp.shift.cpu() - sp_cpu.shift).abs().amax(-1) <= (
+            SUBPIX_SHIFT_TOL)
+        share("subpix_shift", None, None, over=close[valid])
+        rec["subpix_shift_max_px"] = float(
+            (sp.shift.cpu() - sp_cpu.shift).abs().amax(-1)[valid].max())
+        share("subpix_success", sp.success, sp_cpu.success)
+        rec["subpix_pass_ok"] = [bool(sp.pass_ok), bool(sp_cpu.pass_ok)]
+        if len(set(rec["subpix_pass_ok"])) != 1:
+            failures.append(f"card vs CPU subpix pass {rec['subpix_pass_ok']}")
+        rec["subpix_refined"] = int((sp.success & sp.pass_ok).sum())
+        if img1.is_cuda:
+            rec["subpix_profiled"] = _kernel_split(
+                torch, lambda: subpix.refine_matches_subpix(
+                    img1, img2, pre.pts1, pre.pts2, pre.mask))
+        pts2 = sp.pts2
+    if match.vfc_filter:
+        args = (filters.to_unit(pre.pts1, shape),
+                filters.to_unit(pts2, shape), pre.mask)
+        vfc = filters.vfc_filter(*args)
+        vfc_cpu = filters.vfc_filter(*(a.cpu() for a in args))
+        share("vfc_mask", vfc.inlier_mask, vfc_cpu.inlier_mask)
+        rec["vfc_probability_max_diff"] = float(
+            (vfc.probabilities.cpu() - vfc_cpu.probabilities).abs().max())
+        rec["vfc_kept"] = int(vfc.inlier_mask.sum())
+        if img1.is_cuda:
+            rec["vfc_profiled"] = _kernel_split(
+                torch, lambda: filters.vfc_filter(*args))
+    return rec, failures
 
 
 def pose_streams(torch, robust, pose_cfg, seed):
@@ -855,6 +989,39 @@ def pose_streams(torch, robust, pose_cfg, seed):
         return {"uniforms": u(robust.AUTOTH_ROUNDS, *e_shape),
                 "degen_uniforms": degen}
     return {"uniforms": u(*e_shape), "degen_uniforms": degen}
+
+
+def match_phase(torch, cfg, det, desc, match, pose_cfg, imgs, Kt, dist,
+                truth, seed):
+    """Phase 4e: each of ``match_menu`` through ``drive_path`` with seeded
+    explicit streams (the launches checked), the CPU path's slots against
+    the card's (``cpu_agreement``), and each filter on the card against
+    the CPU (``filters_card_vs_cpu``). Returns ([(name, step record)],
+    failures)."""
+    from matchinglib_poselib_torch.models import pipeline
+    from matchinglib_poselib_torch.ops import kernels, robust
+
+    (img1, img2), (i1, i2) = imgs
+    steps, failures = [], []
+    for m_i, (name, m_cfg, expected) in enumerate(match_menu(cfg, match)):
+        t_phase = time.perf_counter()
+        streams = pose_streams(torch, robust, pose_cfg, seed + 20 + m_i)
+        pipe = pipeline.StereoPipeline(det, desc, m_cfg, pose_cfg,
+                                       device=i1.device)
+        (c, _), rec, fails = drive_path(
+            torch, kernels, pipe, i1, i2, Kt, dist, None, truth, expected,
+            POSE_TIMED_RUNS, streams=streams)
+        failures.extend(f"{name}: {f}" for f in fails)
+        t0 = time.perf_counter()
+        rec["cpu_agree"] = cpu_agreement(torch, pipeline, c, img1, img2, det,
+                                         desc, m_cfg)
+        rec["filters_card_vs_cpu"], fails = filters_card_vs_cpu(
+            torch, pipeline, i1, i2, det, desc, m_cfg)
+        rec["cpu_check_s"] = time.perf_counter() - t0
+        failures.extend(f"{name}: {f}" for f in fails)
+        rec["phase_s"] = time.perf_counter() - t_phase
+        steps.append((name, rec))
+    return steps, failures
 
 
 def _autoth_on(robust, geo, cfg, corr, K, dist, streams, device):
@@ -1561,6 +1728,70 @@ def batch_phase(torch, det, desc, match, pose_cfg, dev, seed):
     return record, failures
 
 
+def batch_options_phase(torch, det, desc, match, pose_cfg, dev, seed):
+    """Phase 7b: ``run_batch`` on the sequence's first BATCH_OPTION_PAIRS
+    pairs with `match` and `pose_cfg` (the options together), seeded
+    explicit streams: counters from 0, one batch, counters read back (K1
+    once, K2a twice per pair); both pairs within the accuracy bars; each
+    pair equal to ``run`` of that pair on the card (``batch_vs_run``).
+    Returns (step record, failures)."""
+    from matchinglib_poselib_torch.models import pipeline
+    from matchinglib_poselib_torch.ops import kernels, robust
+    from matchinglib_poselib_torch.utils.profiling import HostSyncs
+
+    t_phase = time.perf_counter()
+    pairs, K, R_true, t_true = _sequence(seed)
+    pairs = pairs[:BATCH_OPTION_PAIRS]
+    P = len(pairs)
+    imgs1 = torch.from_numpy(np.stack([a for a, _ in pairs])).to(dev)
+    imgs2 = torch.from_numpy(np.stack([b for _, b in pairs])).to(dev)
+    Kt = torch.from_numpy(K).to(dev)
+    dist = torch.zeros(5, device=dev)
+    U, D = batch_streams(torch, robust, pose_cfg, seed + 40, P)
+    pipe = pipeline.StereoPipeline(det, desc, match, pose_cfg, device=dev)
+    # the main path: counts set to 0 just before, read just after
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with HostSyncs.traced() as log:
+        corr, pose = pipe.run_batch(imgs1, imgs2, Kt, Kt, dist, dist,
+                                    uniforms=U, degen_uniforms=D)
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    launches = kernels.launch_counts()
+    expected = {"fast_nms": 1, "knn2": 2 * P, "knn2_l2": 0}
+    failures = [f"{k} launched {launches[k]} times in the batch (expected "
+                f"{v})" for k, v in expected.items() if launches[k] != v]
+    if not bool(torch.isfinite(pose.R).all() and torch.isfinite(pose.t).all()
+                and torch.isfinite(corr.pts2).all()):
+        failures.append("non-finite pose or correspondences")
+    per_pair = []
+    for i in range(P):
+        row = {"n_corr": int(corr.n[i]), "n_inliers": int(pose.n_inliers[i]),
+               "n_models_generated": int(pose.n_models_generated[i]),
+               "rot_err_deg": _rot_deg(R_true, pose.R[i].cpu().numpy()),
+               "t_err_deg": _dir_deg(t_true, pose.t[i].cpu().numpy())}
+        per_pair.append(row)
+        if (row["rot_err_deg"] >= MAX_ROT_DEG
+                or row["t_err_deg"] >= MAX_TANG_DEG
+                or row["n_corr"] < MIN_CORR
+                or row["n_inliers"] < MIN_INLIERS):
+            failures.append(f"pair {i + 1} off the accuracy bars: {row}")
+    singles = []
+    t0 = time.perf_counter()
+    for i in range(P):
+        singles.append(pipe.run(imgs1[i], imgs2[i], Kt, Kt, dist, dist,
+                                uniforms=U[i], degen_uniforms=D[i]))
+    torch.cuda.synchronize()
+    runs_ms = (time.perf_counter() - t0) * 1e3
+    vs_run, fails = batch_vs_run(torch, corr, pose, singles)
+    failures += fails
+    record = {"pairs": P, "launches": launches, "host_syncs_per_batch":
+              len(log), "per_pair": per_pair, "batch_vs_run": vs_run,
+              "batch_ms": batch_ms, "pairs_one_by_one_ms": runs_ms,
+              "phase_s": time.perf_counter() - t_phase}
+    return record, failures
+
+
 def _bound(bytes_moved, time_ops):
     """(bound ms, what bounds it): the larger of the bytes over the HBM
     rate and the operation time."""
@@ -1744,7 +1975,8 @@ def main(argv=None) -> int:
     # streams, then card vs CPU on the pose stage
     from matchinglib_poselib_torch.ops import robust
 
-    for b_i, (b_name, change, bars) in enumerate(pose_menu(cfg)):
+    for b_i, (b_name, change, bars) in enumerate(pose_menu(cfg,
+                                                           pose_cfg.robust)):
         t_phase = time.perf_counter()
         b_cfg = dataclasses.replace(pose_cfg, **change)
         streams = pose_streams(torch, robust, b_cfg, args.seed + 10 + b_i)
@@ -1770,6 +2002,15 @@ def main(argv=None) -> int:
         rec["phase_s"] = time.perf_counter() - t_phase
         steps.append((f"FAST t=12 / 2048 kp / ORB / GMBSOF / 96x12 5pt USAC"
                       f" / pose {b_name}", rec))
+    # 4e. the matching menu: subpix + VFC, the SOF filter
+    match_steps, fails = match_phase(torch, cfg, det, desc, match, pose_cfg,
+                                     ((img1, img2), (i1, i2)), Kt, dist,
+                                     (R_true, t_true), args.seed)
+    failures.extend(fails)
+    match_launches = {m_name: rec["launches"] for m_name, rec in match_steps}
+    steps.extend(
+        (f"FAST t=12 / 2048 kp / ORB / {m_name} / 96x12 5pt USAC", rec)
+        for m_name, rec in match_steps)
     # 6. the stream: StereoRefine on the card, fed by the front end
     stream_rec, fails = stream_phase(torch, cfg, det, desc, match, dev,
                                      args.seed)
@@ -1783,6 +2024,18 @@ def main(argv=None) -> int:
     steps.append((f"batch of {BATCH_PAIRS} (render_sequence frames 1-"
                   f"{BATCH_PAIRS}): FAST t=12 / 2048 kp / ORB / GMBSOF / "
                   "96x12 5pt USAC", batch_rec))
+    # 7b. the batch with the matching and robust options together
+    opt_match = match_menu(cfg, match)[0][1]
+    opt_pose = dataclasses.replace(pose_cfg, robust=dataclasses.replace(
+        pose_cfg.robust, estimator=cfg.PoseEstimator.LMEDS,
+        solver=cfg.MinimalSolver.STEWENIUS_5PT))
+    opt_rec, fails = batch_options_phase(torch, det, desc, opt_match,
+                                         opt_pose, dev, args.seed)
+    failures.extend(f"batch with options: {f}" for f in fails)
+    steps.append((f"batch of {BATCH_OPTION_PAIRS} (render_sequence frames "
+                  f"1-{BATCH_OPTION_PAIRS}): FAST t=12 / 2048 kp / ORB / "
+                  "GMBSOF + subpix + VFC / 96x12 5pt LMEDS, Stewenius",
+                  opt_rec))
     for c_name, rec in steps:
         agree = rec.get("cpu_agree")
         if agree and min(agree.values()) < 0.99:
@@ -1825,6 +2078,9 @@ def main(argv=None) -> int:
                             batch_rec["k1_batch_stack"]["max_abs_err"]),
          "launches_stream": stream_rec["launches"]["fast_nms"],
          "launches_batch": batch_rec["launches"]["fast_nms"],
+         "launches_match_menu": {k: v["fast_nms"]
+                                 for k, v in match_launches.items()},
+         "launches_batch_options": opt_rec["launches"]["fast_nms"],
          "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
          "bound_pipe": k1_pipe if k1_bound[1] == "operations" else "memory",
@@ -1840,6 +2096,9 @@ def main(argv=None) -> int:
          "launches": launches["knn2"], "max_abs_err": k2_err,
          "launches_stream": stream_rec["launches"]["knn2"],
          "launches_batch": batch_rec["launches"]["knn2"],
+         "launches_match_menu": {k: v["knn2"]
+                                 for k, v in match_launches.items()},
+         "launches_batch_options": opt_rec["launches"]["knn2"],
          "ms": k2_ms[0], "plain_ms": k2_plain_ms[0],
          "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
          "bound_route": "tensor cores" if k2_bound is k2_tc else "popc",
@@ -1855,6 +2114,9 @@ def main(argv=None) -> int:
          "replaces": "matchinglib_poselib_tpu/ops/pallas/knn.py:51",
          "launches": sift_launches["knn2_l2"], "max_abs_err": k2b_err,
          "launches_batch": batch_rec["launches"]["knn2_l2"],
+         "launches_match_menu": {k: v["knn2_l2"]
+                                 for k, v in match_launches.items()},
+         "launches_batch_options": opt_rec["launches"]["knn2_l2"],
          "ms": k2b["sift"][0]["ms"], "plain_ms": k2b["sift"][0]["plain_ms"],
          "device_ms": k2b["sift"][0]["device_ms"],
          "plain_device_ms": k2b["sift"][0]["plain_device_ms"],

@@ -7,7 +7,8 @@ that both packages generate from the same numpy code and seeds.
   nested configs included) into the port's equivalent. It reads plain
   attributes and imports nothing from jax.
 - ``tables_from_numpy`` loads the ORB selection table and the 5pt
-  interpolation constants from numpy arrays onto a device.
+  interpolation constants (both solvers' orders) from numpy arrays onto a
+  device.
 - ``pool_from_numpy`` loads a streaming correspondence pool (the state
   ``StereoRefine`` carries across frames, as the JAX package's
   checkpoint stores it) from numpy arrays onto a device.
@@ -48,20 +49,24 @@ def tables_from_numpy(
     orb_idx: np.ndarray,
     interp_pts: np.ndarray,
     vinv_t_nister: np.ndarray,
+    vinv_t_stewenius: np.ndarray | None = None,
     device: torch.device | str = "cpu",
 ) -> tuple[DescriptorTables, SolverTables]:
     """Descriptor and solver tables from numpy arrays.
 
     orb_idx: (30, 512) int flat patch indices of the rotated BRIEF pattern
-    (the JAX package's ``features._ORB_IDX``); interp_pts (20, 3) and
-    vinv_t_nister (20, 20): the 5pt interpolation points and transposed
-    inverse Nister Vandermonde (``solvers._INTERP_PTS``,
-    ``solvers._VINV_T_NISTER``).
+    (the JAX package's ``features._ORB_IDX``); interp_pts (20, 3),
+    vinv_t_nister and vinv_t_stewenius (20, 20): the 5pt interpolation
+    points and the transposed inverse Vandermonde matrices in Nister and
+    Stewenius order (``solvers._INTERP_PTS``, ``solvers._VINV_T_NISTER``,
+    ``solvers._VINV_T``; the Stewenius table regenerated from the seed
+    when None).
     """
     return (
         DescriptorTables(np.asarray(orb_idx), device=device),
         SolverTables(np.asarray(interp_pts), np.asarray(vinv_t_nister),
-                     device=device),
+                     None if vinv_t_stewenius is None
+                     else np.asarray(vinv_t_stewenius), device=device),
     )
 
 

@@ -4,8 +4,10 @@
 - get_correspondences == matchinglib::getCorrespondences
   (correspondences.cpp:148-519): detection (FAST, SIFT, SURF) ->
   description (ORB, SIFT, M-SURF) -> ratio-test matching (Hamming or
-  squared L2) -> (GMBSOF) SOF field -> radius-guided rematch -> optional
-  GMS filter.
+  squared L2) -> (GMBSOF) SOF field -> radius-guided rematch -> the
+  optional filters in the JAX package's order: GMS, the SOF consistency
+  filter (a matcher other than GMBSOF), sub-pixel refinement of pts2,
+  VFC.
 - estimate_pose == the poselib-test single-pair flow
   (tests/poselib-test/main.cpp:1461-1560): camera coords, Oulu
   undistortion, robust 5pt E (or --autoTH's adaptive threshold, or
@@ -20,8 +22,8 @@
 
 Outputs are fixed-shape masked tensors on the inputs' device. Branches of
 the JAX package that are not ported yet (other detectors and descriptors,
-BOLD, SOF-filter/VFC/subpixel filters; AutoTh, Halign, BA and the Kneip
-polish with a pair axis) raise NotImplementedError.
+BOLD; AutoTh, Halign, BA and the Kneip polish with a pair axis) raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ from matchinglib_poselib_torch.config import (
 from matchinglib_poselib_torch.ops import features, filters
 from matchinglib_poselib_torch.ops import geometry as geo
 from matchinglib_poselib_torch.ops import (
-    ba, homography_pose, matching, refine, robust, solvers,
+    ba, homography_pose, matching, refine, robust, solvers, subpix,
 )
 from matchinglib_poselib_torch.utils.profiling import HostSyncs, StageTimer
 
@@ -88,21 +90,11 @@ def _stage(timer: StageTimer | None, name: str):
         {})
 
 
-def _check_matching(match_cfg: MatchingConfig) -> None:
-    unported = [name for name, on in (
-        ("sof_filter", match_cfg.sof_filter
-         and match_cfg.matcher_name.upper() != "GMBSOF"),
-        ("subpix_refine", match_cfg.subpix_refine),
-        ("vfc_filter", match_cfg.vfc_filter),
-    ) if on]
-    if unported:
-        raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
-
-
-def _match(d1, d2, kps1, kps2, binary: bool, match_cfg: MatchingConfig,
+def _match(img1, img2, d1, d2, kps1, kps2, binary: bool,
+           match_cfg: MatchingConfig,
            shape: tuple[int, int]) -> Correspondences:
-    """Ratio-test matching, the GMBSOF guided rematch and the GMS filter
-    on one pair's descriptors."""
+    """Ratio-test matching, the GMBSOF guided rematch and the filter chain
+    on one pair's descriptors (the images for sub-pixel refinement)."""
     # ratio test when enabled, cross-checking as the fallback without it
     # (match_statOptFlow.cpp:149-156)
     cross = match_cfg.cross_check or not match_cfg.ratio_test
@@ -153,6 +145,20 @@ def _match(d1, d2, kps1, kps2, binary: bool, match_cfg: MatchingConfig,
             pts1, pts2, mask, shape, shape, grid=match_cfg.gms_grid,
             alpha=match_cfg.gms_threshold_factor,
         )
+    if match_cfg.sof_filter and match_cfg.matcher_name.upper() != "GMBSOF":
+        mask = filters.sof_filter_matches(
+            pts1, pts2, mask, shape, cell_px=match_cfg.sof_grid_px,
+            validation_th=match_cfg.sof_validation_th,
+        )
+    if match_cfg.subpix_refine:
+        # template-matching refinement of the right-image points
+        # (getSubPixMatches, matchers.cpp:1085)
+        pts2 = subpix.refine_matches_subpix(img1, img2, pts1, pts2,
+                                            mask).pts2
+    if match_cfg.vfc_filter:
+        mask = filters.vfc_filter(filters.to_unit(pts1, shape),
+                                  filters.to_unit(pts2, shape),
+                                  mask).inlier_mask
     # PROSAC quality: inverse distance ratio
     ratio_q = res.distance / torch.clamp(res.second_distance, min=1e-9)
     quality = torch.where(mask, 1.0 - ratio_q, 0.0)
@@ -177,7 +183,6 @@ def get_correspondences(
     img1, img2: (H, W) float32 grayscale in [0, 1]. timer: optional
     StageTimer charged with keypoints / descriptors / matching.
     """
-    _check_matching(match_cfg)
     if shape is None:
         shape = tuple(img1.shape)
     binary = features.is_binary_descriptor(desc_cfg.kind)
@@ -194,7 +199,8 @@ def get_correspondences(
                                                 tables)
         h["outputs"] = (d1, d2)
     with _stage(timer, "matching") as h:
-        corr = _match(d1, d2, kps1, kps2, binary, match_cfg, shape)
+        corr = _match(img1, img2, d1, d2, kps1, kps2, binary, match_cfg,
+                      shape)
         h["outputs"] = (corr.pts2, corr.quality)
     return corr
 
@@ -520,10 +526,10 @@ class StereoPipeline:
         (P, max_batches, B, k) and degen_uniforms (P, 1, min(B, 64), 4)
         (``estimate_pose``), else drawn from `generator` pair by pair as P
         ``run`` calls draw them. The FAST rows score all 2P images in one
-        call of the fused kernel; descriptors and matching run pair by
-        pair; the pose stage runs once over the pair axis (the default
-        branch: AutoTh, Halign, BA and the KNEIP refine raise
-        NotImplementedError). The stages are charged to the timer under
+        call of the fused kernel; descriptors, matching and the match
+        filters run pair by pair; the pose stage runs once over the pair
+        axis (the default branch: AutoTh, Halign, BA and the KNEIP refine
+        raise NotImplementedError). The stages are charged to the timer under
         ``run``'s four names.
         """
         imgs1, imgs2 = self._to(imgs1), self._to(imgs2)
@@ -536,7 +542,6 @@ class StereoPipeline:
         _refuse_unported_pair_branches(self.pose_cfg)
         _check_shapes("run_batch", _stream_shapes(self.pose_cfg, P, uniforms,
                                                   degen_uniforms))
-        _check_matching(self.match_cfg)
         binary = features.is_binary_descriptor(self.desc_cfg.kind)
         bands = features.detector_bands(self.det_cfg)
         imgs = torch.cat([imgs1, imgs2])
@@ -550,9 +555,10 @@ class StereoPipeline:
             h["outputs"] = desc
         with self.timer.stage("matching") as h:
             corr = _stack([
-                _match(d1, d2, k1, k2, binary, self.match_cfg,
+                _match(i1, i2, d1, d2, k1, k2, binary, self.match_cfg,
                        tuple(imgs1.shape[1:]))
-                for (d1, k1), (d2, k2) in zip(desc[:P], desc[P:])])
+                for i1, i2, (d1, k1), (d2, k2) in zip(imgs1, imgs2, desc[:P],
+                                                      desc[P:])])
             h["outputs"] = corr
         pose = self._pose(corr, K1, K2, dist1, dist2, generator,
                           uniforms=uniforms, degen_uniforms=degen_uniforms)

@@ -1,5 +1,5 @@
-"""Correspondence filters (port of ``ops/filters.py``): GMS grid voting
-and the GMBSOF statistical-flow subset.
+"""Correspondence filters (port of ``ops/filters.py``): GMS grid voting,
+the GMBSOF statistical-flow subset, the SOF consistency filter and VFC.
 
 GMS (Grid-based Motion Statistics, gms.cpp:54-84): matches scatter-added
 into a (G^2, G^2) cell-pair histogram, each pair scored by its 9 aligned
@@ -9,7 +9,11 @@ half-cell grid offsets. The SOF (Statistical Optical Flow) field of GMbSOF
 interpolStatOptFlow, :4410 guidedMatching): per-grid-cell robust flow
 statistics with dual validation, a stats-over-stats band filter, field
 fill, and the predicted position + search radius per query keypoint, plus
-the seed-kNN fallback for sparse seeds. Fixed-shape and mask-aware.
+the seed-kNN fallback for sparse seeds; ``sof_filter_matches`` keeps the
+matches within the field's predicted radius (filterMatchesSOF,
+correspondences.cpp:521). VFC (Vector Field Consensus, vfc.cpp): a
+Gaussian-kernel flow field fitted by 30 fixed EM steps. Fixed-shape and
+mask-aware.
 """
 
 from __future__ import annotations
@@ -435,3 +439,116 @@ def sof_predict_knn(
     rad = std_mult * sigma + 4.0 + 0.15 * far
     ok = (n_seed >= 3) & torch.any(nvalid, dim=1)
     return pred, rad, ok
+
+
+def sof_filter_matches(
+    pts1: torch.Tensor,
+    pts2: torch.Tensor,
+    mask: torch.Tensor,
+    shape: tuple[int, int],
+    cell_px: int = 100,
+    validation_th=0.3,
+) -> torch.Tensor:
+    """Matches consistent with the SOF field of the matches themselves:
+    within the predicted radius of the predicted position
+    (filterMatchesSOF, correspondences.cpp:521). Returns the (N,) mask."""
+    field = sof_statistics(pts1, pts2, mask, shape, cell_px, validation_th)
+    pred, rad = sof_predict(field, pts1, cell_px)
+    d = torch.linalg.norm(pts2 - pred, dim=-1)
+    return mask.to(torch.bool) & (d <= rad)
+
+
+# ---------------------------------------------------------------------------
+# VFC: vector field consensus
+# ---------------------------------------------------------------------------
+
+
+def to_unit(pts: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
+    """Pixel coords (N, 2) over [W, H] of an image of shape (H, W), VFC's
+    input scale, as the JAX package's compiled step evaluates it: a
+    product with the f32 reciprocals (which also makes no host tensor)."""
+    inv_w, inv_h = (float(np.float32(1.0) / np.float32(v))
+                    for v in (shape[1], shape[0]))
+    return torch.stack([pts[:, 0] * inv_w, pts[:, 1] * inv_h], dim=-1)
+
+
+class VFCResult(NamedTuple):
+    inlier_mask: torch.Tensor  # (N,) bool
+    probabilities: torch.Tensor  # (N,) posterior inlier probability
+    field_values: torch.Tensor  # (N, 2) interpolated field at pts1
+
+
+def vfc_filter(
+    pts1: torch.Tensor,
+    pts2: torch.Tensor,
+    mask: torch.Tensor,
+    iterations: int = 30,
+    beta: float = 0.1,
+    lam: float = 3.0,
+    gamma_init: float = 0.9,
+    theta: float = 0.75,
+    n_basis: int = 0,
+) -> VFCResult:
+    """Vector Field Consensus EM (vfc.cpp class VFC) on roughly
+    unit-scaled coordinates (the caller divides pixels by the image size).
+
+    ``n_basis`` = 0 is the NORMAL variant (every point a Gaussian basis);
+    0 < n_basis < N is SPARSE_VFC with the first n_basis valid points as
+    the basis. A fixed ``iterations`` EM steps, each a regularized weighted
+    least-squares solve for the field's coefficients. The solve does not
+    check for a singular system, so it never reads the card's error flag:
+    a singular step gives non-finite values, as the JAX package's
+    ``linalg.solve`` does.
+    """
+    dt = pts1.dtype
+    N = pts1.shape[0]
+    maskb = mask.to(torch.bool)
+    maskf = maskb.to(dt)
+    Y = pts2 - pts1
+
+    def gauss(a, b):
+        d2 = torch.sum((a[:, None, :] - b[None, :, :]) ** 2, dim=-1)
+        return torch.exp(-beta * d2)
+
+    if n_basis and n_basis < N:
+        # the first valid points, in slot order (a stable sort, as the
+        # JAX package's argsort)
+        order = torch.argsort((~maskb).to(torch.int8), stable=True)
+        Xb = pts1[order[:n_basis]]
+    else:
+        Xb = pts1
+    K = gauss(Xb, Xb)
+    U = gauss(pts1, Xb)
+    M = Xb.shape[0]
+    eye = torch.eye(M, dtype=dt, device=pts1.device)
+    n_valid = torch.clamp(torch.sum(maskf), min=1.0)
+
+    sigma2 = torch.sum(maskf * torch.sum(Y * Y, dim=-1)) / n_valid
+    gamma = torch.full((), gamma_init, dtype=dt, device=pts1.device)
+    a_const = 1.0 / 4.0  # uniform outlier density on the unit square-ish
+    C = torch.zeros((M, 2), dtype=dt, device=pts1.device)
+    P = maskf
+    for _ in range(iterations):
+        V = U @ C
+        r2 = torch.sum((Y - V) ** 2, dim=-1)
+        # E-step: posterior inlier probability
+        pin = gamma * torch.exp(-r2 / (2.0 * sigma2)) / (
+            2.0 * math.pi * sigma2)
+        pout = (1.0 - gamma) * a_const
+        P = torch.where(maskf > 0, pin / torch.clamp(pin + pout, min=1e-30),
+                        0.0)
+        # M-step: weighted regularized least squares for C, with the
+        # trace-scaled jitter (few flat bases make A nearly singular once
+        # sigma2 shrinks)
+        WU = U * P[:, None]
+        A = U.T @ WU + lam * sigma2 * K
+        A = A + (1e-6 + 1e-4 * (torch.trace(A) / M)) * eye
+        C = torch.linalg.solve_ex(A, WU.T @ Y)[0]
+        V = U @ C
+        r2 = torch.sum((Y - V) ** 2, dim=-1)
+        sp = torch.clamp(torch.sum(P), min=1e-6)
+        sigma2 = torch.clamp(torch.sum(P * r2) / (2.0 * sp), min=1e-8)
+        gamma = torch.clamp(sp / n_valid, 0.05, 0.95)
+    V = U @ C
+    return VFCResult(inlier_mask=(P > theta) & maskb, probabilities=P,
+                     field_values=V)

@@ -1,11 +1,14 @@
 """Batched robust essential-matrix estimation (port of ``ops/robust.py``:
-the default path and AutoTh).
+the default path, LMEDS and AutoTh).
 
-USAC/PROSAC hypothesis batches of the five-point solver scored densely,
+USAC/PROSAC hypothesis batches of a five-point solver (Nister or
+Stewenius) scored densely,
 with the half-uniform mixed pool, zero-inlier threshold inflation, the
 adaptive confidence stop bounded by the SPRT prior, LO re-fits with the
 support-guarded projection, and the degeneracy check (homography,
-rotation-only and no-motion families on the E-inliers);
+rotation-only and no-motion families on the E-inliers); LMEDS
+(runLMeDS, modelest.cpp:483) scores by the median residual over every
+batch and classifies with the 2.5 * 1.4826 * sqrt(median) band;
 ``estimate_essential_autoth`` adapts the threshold between rounds of it
 (AutoThEpi).
 
@@ -24,7 +27,8 @@ a pair axis — batch i uses uniforms[..., i, :, :], the counterpart of
 ``torch.Generator`` (``estimate_essential_robust``: pair by pair). The
 JAX package's ``lax.while_loop``s are Python loops that read one exit
 flag (every pair done) on the host once per iteration
-(``utils.profiling.HostSyncs``).
+(``utils.profiling.HostSyncs``); LMEDS's batch loop has no exit and reads
+none.
 """
 
 from __future__ import annotations
@@ -67,15 +71,18 @@ def essential_family(
     solver: MinimalSolver = MinimalSolver.NISTER_5PT,
     tables: solvers.SolverTables | None = None,
 ) -> ModelFamily:
-    """Five-point essential family (Nister closed form). The Stewenius
-    solver of the JAX package is not ported yet."""
+    """Five-point essential family: Nister's closed form (the default) or
+    Stewenius's action matrix (EssentialMatEstimator.h:395,463
+    fivept_nister / fivept_stewenius)."""
     if solver == MinimalSolver.STEWENIUS_5PT:
-        raise NotImplementedError("the Stewenius 5pt solver is not ported")
+        name, solve_5pt = "stewenius", solvers.solve_5pt
+    else:
+        name, solve_5pt = "nister", solvers.solve_5pt_nister
 
     def solve(x1, x2):
-        return solvers.solve_5pt_nister(x1, x2, tables)
+        return solve_5pt(x1, x2, tables)
 
-    return ModelFamily("essential_5pt_nister", 5, 10, solve,
+    return ModelFamily(f"essential_5pt_{name}", 5, 10, solve,
                        _sampson_family_error)
 
 
@@ -163,18 +170,23 @@ def prosac_pool_schedule(batch_idx: int, n_valid: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _score_models(models, mvalid, err_fn, x1, x2, mask, th_sq):
+def _score_models(models, mvalid, err_fn, x1, x2, mask, th_sq,
+                  lmeds: bool = False):
     """Score (..., M, 3, 3) models: inlier count with an MSAC-style
-    truncated error tiebreak, the valid-point count taken per pair.
+    truncated error tiebreak, the valid-point count taken per pair; with
+    `lmeds`, minus the median residual over the valid points.
     th_sq: () or (...). Returns (score, counts, err)."""
     err = err_fn(models, x1, x2)
     maskf = mask.to(err.dtype)[..., None, :]
     th = th_sq[..., None, None]
     inl = (err < th) & (maskf > 0)
     counts = torch.sum(inl, dim=-1)
-    trunc = torch.sum(torch.minimum(err, th) * maskf, dim=-1)
-    score = counts.to(err.dtype) - trunc / (
-        th[..., 0] * (torch.sum(maskf, dim=-1) + 1.0))
+    if lmeds:
+        score = -geo.masked_median(err, mask[..., None, :].expand(err.shape))
+    else:
+        trunc = torch.sum(torch.minimum(err, th) * maskf, dim=-1)
+        score = counts.to(err.dtype) - trunc / (
+            th[..., 0] * (torch.sum(maskf, dim=-1) + 1.0))
     return torch.where(mvalid, score, -torch.inf), counts, err
 
 
@@ -218,11 +230,13 @@ def ransac(
     (PROSAC order; None = no PROSAC); threshold_sq and prior_inlier_ratio:
     shared or per pair. uniforms: (..., max_batches, B, k) sample
     uniforms, else drawn from `generator`. Every pair runs
-    until it meets its stop rule; the loop ends when all have. LMEDS and
-    the other estimators of the JAX package's menu are not ported yet.
+    until it meets its stop rule; the loop ends when all have. LMEDS
+    (``cfg.estimator``) keeps the model of least median residual over all
+    max_batches (no threshold inflation, no stop, no host read), and its
+    inlier band (2.5 * 1.4826 * sqrt(median))^2 becomes the result's
+    threshold.
     """
-    if cfg.estimator == PoseEstimator.LMEDS:
-        raise NotImplementedError("LMEDS scoring is not ported")
+    lmeds = cfg.estimator == PoseEstimator.LMEDS
     dev, dt = x1.device, x1.dtype
     N = x1.shape[-2]
     batch = x1.shape[:-2]
@@ -261,7 +275,7 @@ def ransac(
     live = torch.ones(batch, dtype=torch.bool, device=dev)
     for i in range(cfg.max_batches):
         # zero-inlier threshold inflation (USAC.h:355-364)
-        if cfg.inflate_th_on_failure:
+        if cfg.inflate_th_on_failure and not lmeds:
             for at, f in ((cfg.max_batches // 2, 1.33),
                           ((2 * cfg.max_batches) // 3, 1.13)):
                 if i == at:
@@ -284,7 +298,7 @@ def ransac(
         models = models.reshape(batch + (B * m, 3, 3))
         mvalid = mvalid.reshape(batch + (B * m,))
         score, counts, _ = _score_models(
-            models, mvalid, family.error, x1, x2, maskb, th_sq
+            models, mvalid, family.error, x1, x2, maskb, th_sq, lmeds
         )
         best = torch.argmax(score, dim=-1)[..., None]
         n_rej = n_rej + torch.where(live, torch.sum(~mvalid, dim=-1), 0)
@@ -298,6 +312,10 @@ def ransac(
             torch.take_along_dim(models, best[..., None, None], dim=-3)[
                 ..., 0, :, :],
             best_model)
+        n_batches = n_batches + live.to(torch.int64)
+        if lmeds:
+            # every batch runs: the count is known, nothing to read
+            continue
         # adaptive stopping: P(miss) = (1 - w^k)^(hyps so far) < 1 - conf
         n_hyp = _f32((i + 1.0) * B * m, x1)
         w = best_count.to(torch.float32) / torch.clamp(
@@ -313,12 +331,16 @@ def ransac(
                 & (best_count > k)
             )
             done = done | prior_ok
-        n_batches = n_batches + live.to(torch.int64)
         live = live & ~done
         if not HostSyncs.read(torch.any(live), "ransac", i):
             break
 
     err = family.error(best_model[..., None, :, :], x1, x2)[..., 0, :]
+    if lmeds:
+        # robust sigma band (modelest.cpp runLMeDS)
+        s = 2.5 * 1.4826 * torch.sqrt(
+            torch.clamp(geo.masked_median(err, maskb), min=1e-20))
+        th_sq = s * s
     inl = (err < th_sq[..., None]) & maskb
     n_inl = torch.sum(inl, dim=-1)
     ratio = n_inl.to(torch.float32) / torch.clamp(

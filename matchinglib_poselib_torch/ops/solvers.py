@@ -1,4 +1,5 @@
-"""Batched minimal solvers (port of ``ops/solvers.py``, main-path subset).
+"""Batched minimal solvers (port of ``ops/solvers.py``, the essential and
+homography subset).
 
 - Nister's five-point essential solver (five-point.cpp:260-455 run5Point):
   QR nullspace of the 5x9 epipolar system, the ten cubic constraints
@@ -6,6 +7,12 @@
   identical to the JAX package's), Gauss-Jordan elimination to the
   degree-10 polynomial det B(z), real roots by a sign scan + bisection,
   x, y by 2x2 least squares, then a Gauss-Newton polish.
+- Stewenius's five-point solver (opengv fivept_stewenius): the same
+  constraints in the Stewenius monomial order, Gauss-Jordan elimination
+  to the 10x10 action matrix M_z, its Householder reduction to Hessenberg
+  form, real eigenvalues by a sign scan of Hyman's determinant on a tan
+  grid + bisection, eigenvectors from Hyman's recurrence, then the same
+  polish.
 - the (weighted) 8-point solver, and the homography DLT with its transfer
   error, which the degeneracy check scores.
 
@@ -29,8 +36,9 @@ from matchinglib_poselib_torch.ops.geometry import (
 # seeded interpolation constants (host-side numpy, as in the JAX package)
 # ---------------------------------------------------------------------------
 
-# Stewenius ordering, used only to pick the interpolation points: the 10
-# degree-3 monomials, then the 10 of degree <= 2.
+# Stewenius ordering (also used to pick the interpolation points): the 10
+# degree-3 monomials, then the 10 of degree <= 2 (the quotient-ring basis
+# [x^2, xy, y^2, xz, yz, z^2, x, y, z, 1]).
 _MONOMIALS = [
     (3, 0, 0), (2, 1, 0), (1, 2, 0), (0, 3, 0), (2, 0, 1),
     (1, 1, 1), (0, 2, 1), (1, 0, 2), (0, 1, 2), (0, 0, 3),
@@ -73,23 +81,40 @@ def nister_vinv_t(pts64: np.ndarray) -> np.ndarray:
     return np.linalg.inv(_eval_monomial_list(pts64, _MONOMIALS_NISTER)).T
 
 
+def stewenius_vinv_t(pts64: np.ndarray) -> np.ndarray:
+    """(20, 20) float64 transposed inverse Vandermonde, Stewenius
+    ordering."""
+    return np.linalg.inv(_eval_monomial_list(pts64, _MONOMIALS)).T
+
+
 class SolverTables:
     """The 5pt interpolation constants on one device (float32).
 
-    Regenerated from the seeded numpy code by default, or taken from the
-    arrays passed in (``convert.tables_from_numpy``).
+    Each table is taken from the array passed in
+    (``convert.tables_from_numpy``), else regenerated from the seeded
+    numpy code.
     """
 
     def __init__(self, interp_pts=None, vinv_t_nister=None,
-                 device: torch.device | str = "cpu"):
-        if interp_pts is None:
+                 vinv_t_stewenius=None, device: torch.device | str = "cpu"):
+        if any(a is None for a in (interp_pts, vinv_t_nister,
+                                   vinv_t_stewenius)):
             pts64 = pick_interpolation_points()
-            interp_pts = pts64.astype(np.float32)
-            vinv_t_nister = nister_vinv_t(pts64).astype(np.float32)
-        self.interp_pts = torch.tensor(
-            np.asarray(interp_pts, np.float32), device=device)
-        self.vinv_t_nister = torch.tensor(
-            np.asarray(vinv_t_nister, np.float32), device=device)
+            if interp_pts is None:
+                interp_pts = pts64.astype(np.float32)
+            if vinv_t_nister is None:
+                vinv_t_nister = nister_vinv_t(pts64).astype(np.float32)
+            if vinv_t_stewenius is None:
+                vinv_t_stewenius = stewenius_vinv_t(pts64).astype(np.float32)
+
+        def put(a):
+            return torch.tensor(np.asarray(a, np.float32), device=device)
+
+        self.interp_pts = put(interp_pts)
+        self.vinv_t_nister = put(vinv_t_nister)
+        self.vinv_t_stewenius = put(vinv_t_stewenius)
+        # the Stewenius root scan's theta grid, on the device once
+        self.theta_hess = put(_theta_grid_np())
 
 
 _TABLES: dict[str, SolverTables] = {}
@@ -103,8 +128,8 @@ def default_tables(device) -> SolverTables:
         if base is None:
             base = _TABLES["cpu"] = SolverTables()
         _TABLES[key] = SolverTables(
-            base.interp_pts.numpy(), base.vinv_t_nister.numpy(), device
-        )
+            base.interp_pts.numpy(), base.vinv_t_nister.numpy(),
+            base.vinv_t_stewenius.numpy(), device=device)
     return _TABLES[key]
 
 
@@ -526,7 +551,17 @@ def solve_5pt_nister(x1: torch.Tensor, x2: torch.Tensor,
     y = -(g11 * h2 - g12 * h1) / det_safe
     ok = rvalid & (torch.abs(det_g) > 1e-25)
 
-    xyz = _polish_xyz(Ebasis, torch.stack([x, y, roots], dim=-1))
+    return _models_from_xyz(Ebasis, torch.stack([x, y, roots], dim=-1), ok,
+                            okA)
+
+
+def _models_from_xyz(Ebasis, xyz, ok, okA):
+    """Both five-point solvers' last step: the polish of (x, y, z), the
+    essential matrices x E0 + y E1 + z E2 + E3 Frobenius-normalized, the
+    validity mask; invalid slots hold the identity."""
+    xyz = _polish_xyz(Ebasis, xyz)
+    # runaway solutions overflow ||E||^2 to inf in f32, making E / ||E|| a
+    # zero matrix that would pass the finiteness checks: bound xyz first
     ok = ok & torch.all(torch.abs(xyz) < 1e4, dim=-1) & torch.all(
         torch.isfinite(xyz), dim=-1
     )
@@ -540,6 +575,180 @@ def solve_5pt_nister(x1: torch.Tensor, x2: torch.Tensor,
     )
     eye = torch.eye(3, dtype=E.dtype, device=E.device)
     return torch.where(valid[..., None, None], E, eye), valid
+
+
+# ---------------------------------------------------------------------------
+# 5-point solver (Stewenius)
+# ---------------------------------------------------------------------------
+
+# quotient-basis indices (within the last 10 monomials) of x, y, z, 1
+_BASIS_X, _BASIS_Y, _BASIS_Z, _BASIS_1 = 6, 7, 8, 9
+# rows of M_z: z * {x^2, xy, y^2, xz, yz, z^2} are the eliminated degree-3
+# monomials 4..9, z * {x, y, z, 1} = {xz, yz, z^2, z} the basis monomials
+# 3, 4, 5 and 8 (slices, so that no index list is copied to the device)
+_Z_TIMES_BASIS_HI = slice(4, 10)
+_Z_TIMES_BASIS_LO = (slice(3, 6), slice(8, 9))
+
+_N_THETA = 129  # sign-scan resolution
+_N_BISECT_HESS = 16  # fixed bisection steps (theta space)
+_THETA_EPS = 1e-3
+
+
+def _theta_grid_np() -> np.ndarray:
+    """The scan grid linspace(-pi/2 + 1e-3, pi/2 - 1e-3, 129) in float32,
+    evaluated as the JAX package's ``jnp.linspace`` is: start (1 - s) +
+    stop s with s = i / 128, the second product fused into the add, the
+    stop exact."""
+    start = np.float32(-np.pi / 2 + _THETA_EPS)
+    stop = np.float32(np.pi / 2 - _THETA_EPS)
+    step = np.arange(_N_THETA - 1, dtype=np.float32) / np.float32(
+        _N_THETA - 1)
+    head = (start * (np.float32(1.0) - step)).astype(np.float32)
+    fused = (np.float64(stop) * step.astype(np.float64)
+             + head.astype(np.float64)).astype(np.float32)
+    return np.append(fused, stop).astype(np.float32)
+
+
+def _action_matrix(C: torch.Tensor):
+    """Gauss-Jordan elimination of the degree-3 monomials: C (..., 10, 20)
+    in Stewenius order -> (M_z (..., 10, 10), ok (...)), ok where the
+    elimination stayed finite."""
+    B = solve_small_lanes(C[..., :, :10], C[..., :, 10:])
+    ok = torch.all(torch.isfinite(B).flatten(-2), dim=-1)
+    B = torch.where(ok[..., None, None], B, torch.zeros_like(B))
+    top = -B[..., _Z_TIMES_BASIS_HI, :]
+    eye = torch.eye(10, dtype=C.dtype, device=C.device)
+    bottom = torch.cat([eye[r] for r in _Z_TIMES_BASIS_LO]).expand(
+        C.shape[:-2] + (4, 10))
+    return torch.cat([top, bottom], dim=-2), ok
+
+
+def hessenberg(M: torch.Tensor):
+    """Householder reduction to upper Hessenberg form: M (..., n, n) ->
+    (H, Q) with M = Q H Q^T; n - 2 reflections, each a handful of batched
+    tensor ops."""
+    n = M.shape[-1]
+    H = M
+    Q = torch.eye(n, dtype=M.dtype, device=M.device).expand(M.shape)
+    rows = torch.arange(n, device=M.device)
+    for k in range(n - 2):
+        # the entries below the pivot row k + 1
+        xm = torch.where(rows > k, H[..., :, k], 0.0)
+        normx = torch.linalg.norm(xm, dim=-1)
+        x0 = H[..., k + 1, k]
+        alpha = -torch.sign(torch.where(x0 == 0, 1.0, x0)) * normx
+        v = xm - alpha[..., None] * (rows == (k + 1)).to(M.dtype)
+        vn = torch.linalg.norm(v, dim=-1, keepdim=True)
+        v = v / torch.where(vn > 1e-20, vn, 1.0)
+        # H <- P H P with P = I - 2 v v^T
+        Hv = torch.einsum("...ij,...j->...i", H, v)
+        vH = torch.einsum("...i,...ij->...j", v, H)
+        vHv = torch.sum(v * Hv, dim=-1)
+        H = (H - 2.0 * v[..., :, None] * vH[..., None, :]
+             - 2.0 * Hv[..., :, None] * v[..., None, :]
+             + 4.0 * vHv[..., None, None] * v[..., :, None]
+             * v[..., None, :])
+        Qv = torch.einsum("...ij,...j->...i", Q, v)
+        Q = Q - 2.0 * Qv[..., :, None] * v[..., None, :]
+    return H, Q
+
+
+def _hyman(H: torch.Tensor, lam: torch.Tensor):
+    """Hyman's method on upper Hessenberg H (..., n, n) at shifts lam
+    (...): (r, x) with det(H - lam I) = r * prod(subdiagonal) *
+    (-1)^(n-1), so that r's sign changes over lam locate the eigenvalues,
+    and x (..., n) solving rows 2..n of (H - lam I) x = 0 with x_{n-1} =
+    1 (the eigenvector, in the Hessenberg basis, at an eigenvalue).
+
+    The back substitution carries x as one (..., n) vector whose entries
+    not yet defined are 0: row i's sum is one reduction over it, each
+    positive renormalization (which bounds the magnitudes and keeps the
+    signs) one division, so a call is O(n) tensor ops. The JAX package
+    sums each row term by term, in another order.
+    """
+    n = H.shape[-1]
+    x = torch.zeros(lam.shape + (n,), dtype=H.dtype, device=H.device)
+    x[..., n - 1] = 1.0
+    sub = torch.diagonal(H, offset=-1, dim1=-2, dim2=-1)
+    sub = torch.where(torch.abs(sub) > 1e-25, sub, 1e-25)
+    for i in range(n - 1, 0, -1):
+        # row i: sum_{j >= i} H[i, j] x_j - lam x_i + H[i, i-1] x_{i-1} = 0
+        s = torch.sum(H[..., i, :] * x, dim=-1) - lam * x[..., i]
+        xi = -s / sub[..., i - 1]
+        m = torch.clamp(torch.abs(xi), min=1.0)
+        x = x / m[..., None]
+        x[..., i - 1] = xi / m
+    r = torch.sum(H[..., 0, :] * x, dim=-1) - lam * x[..., 0]
+    return r, x
+
+
+def _real_eigenvalues_hess(H: torch.Tensor, theta: torch.Tensor):
+    """Real eigenvalues of upper Hessenberg matrices (..., 10, 10): sign
+    scan of Hyman's r on the tan grid of theta (129,), then fixed
+    bisection in theta. Returns (roots, valid) (..., 10). Complex
+    eigenvalues are skipped, and so is a tight double root without a sign
+    change (that hypothesis is simply not produced)."""
+    batch = H.shape[:-2]
+    Hr = H[..., None, :, :]
+    g, _ = _hyman(Hr, torch.tan(theta).expand(batch + (_N_THETA,)))
+    sign = torch.sign(g)
+    flips = sign[..., :-1] * sign[..., 1:] < 0
+    # the first up-to-10 flip intervals (S - 1 pads: invalid)
+    iota = torch.arange(_N_THETA - 1, device=H.device)
+    cand = torch.sort(torch.where(flips, iota, _N_THETA - 1),
+                      dim=-1).values[..., :_MAX_ROOTS]
+    valid = cand < (_N_THETA - 1)
+    cand = torch.clamp(cand, max=_N_THETA - 2)
+    lo = theta[cand]
+    hi = theta[cand + 1]
+    g_lo, _ = _hyman(Hr, torch.tan(lo))
+    for _ in range(_N_BISECT_HESS):
+        mid = 0.5 * (lo + hi)
+        g_mid, _ = _hyman(Hr, torch.tan(mid))
+        left = g_lo * g_mid <= 0
+        hi = torch.where(left, mid, hi)
+        lo, g_lo = torch.where(left, lo, mid), torch.where(left, g_lo, g_mid)
+    return torch.tan(0.5 * (lo + hi)), valid
+
+
+def _eigenvector_xy_hess(H, Q, z, valid):
+    """x, y of each eigenvalue z (..., R) from the quotient-basis
+    eigenvector of M_z: Hyman's back-substituted vector at z, rotated back
+    by Q. Returns x, y, ok (..., R); ok also requires the eigenvector's z
+    entry to agree with z."""
+    _, xh = _hyman(H[..., None, :, :], z)
+    v = torch.einsum("...ij,...rj->...ri", Q, xh)
+    v = v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True),
+                        min=1e-20)
+    w = v[..., _BASIS_1]
+    ok = valid & (torch.abs(w) > 1e-6) & torch.all(torch.isfinite(v), dim=-1)
+    w_safe = torch.where(torch.abs(w) > 1e-12, w, 1.0)
+    x = v[..., _BASIS_X] / w_safe
+    y = v[..., _BASIS_Y] / w_safe
+    z_hat = v[..., _BASIS_Z] / w_safe
+    ok = ok & (torch.abs(z_hat - z) <= 0.05 * (1.0 + torch.abs(z)))
+    return x, y, ok
+
+
+def solve_5pt(x1: torch.Tensor, x2: torch.Tensor,
+              tables: SolverTables | None = None):
+    """Batched five-point solver, Stewenius's action matrix.
+
+    x1, x2 (..., 5, 2) -> (E (..., 10, 3, 3) Frobenius-normalized,
+    valid (..., 10)); invalid slots hold the identity.
+    """
+    if tables is None:
+        tables = default_tables(x1.device)
+    A = epipolar_rows(x1, x2)
+    ns = nullspace_qr(A)
+    Ebasis = ns.transpose(-1, -2).reshape(ns.shape[:-2] + (4, 3, 3))
+    C = _constraint_values(Ebasis, tables.interp_pts) @ tables.vinv_t_stewenius
+    Mz, okA = _action_matrix(C)
+    Hm, Qm = hessenberg(Mz)
+    roots, rvalid = _real_eigenvalues_hess(Hm, tables.theta_hess)
+    x, y, ok = _eigenvector_xy_hess(Hm, Qm, roots, rvalid)
+    return _models_from_xyz(Ebasis, torch.stack([x, y, roots], dim=-1), ok,
+                            okA)
 
 
 # ---------------------------------------------------------------------------

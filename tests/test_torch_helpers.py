@@ -111,6 +111,43 @@ def jax_stereo_refine_streams(seed, cfg, key=None):
     return streams
 
 
+def jax_pair_streams(key, P, robust):
+    """A batch's streams as the JAX package's ``run_batch`` draws them:
+    pair i's from the i-th key of split(key, P), stacked -> ((P,
+    max_batches, B, k), (P, 1, min(B, 64), 4))."""
+    (nb, B, k), _ = sample_shapes(robust)
+    keys = jax.random.split(key, P)
+    return (torch.stack([jax_uniforms(kk, nb, B, k) for kk in keys]),
+            torch.stack([jax_degen_uniforms(kk, B) for kk in keys]))
+
+
+# the robust engine's counters of a PoseResult
+COUNTERS = ("n_models_generated", "n_models_rejected", "n_points_verified",
+            "n_lo_refinements")
+
+
+def assert_pair_equal(corr, pose, c, p, i):
+    """Pair i of a batch's Correspondences and PoseResult against a single
+    pair's (c, p): every correspondence and keypoint field exact, the pose
+    as ``assert_pose_equal``."""
+    for name in ("pts1", "pts2", "mask", "quality", "distance"):
+        assert torch.equal(getattr(corr, name)[i], getattr(c, name)), name
+    for side in ("kps1", "kps2"):
+        for a, b in zip(getattr(corr, side), getattr(c, side)):
+            assert torch.equal(a[i], b), side
+    assert_pose_equal(pose, p, i)
+
+
+def assert_pose_equal(pose, p, i):
+    """Pair i of a batched PoseResult against a single pair's: masks,
+    flags and counters exact, R, t and E within 1e-5."""
+    for name in ("inlier_mask", "valid3d", "is_degenerate", *COUNTERS):
+        assert torch.equal(getattr(pose, name)[i], getattr(p, name)), name
+    for name in ("R", "t", "E"):
+        diff = (getattr(pose, name)[i] - getattr(p, name)).abs().max()
+        assert float(diff) <= 1e-5, (name, float(diff))
+
+
 def rot_angle_deg(Ra, Rb):
     """Angle of Ra^T Rb in degrees (float64)."""
     dR = np.asarray(Ra, np.float64).T @ np.asarray(Rb, np.float64)

@@ -22,7 +22,9 @@ def test_port_runs_without_importing_jax():
     """A fresh interpreter imports the port and chip_smoke, runs the plain
     pipeline at the FAST/ORB and the SIFT/SIFT + GMS configs, run_batch on
     two small pairs, one estimate_pose per pose branch (AutoTh, Halign,
-    BA, Kneip), two frames
+    BA, Kneip, LMEDS, Stewenius), run and run_batch with each of
+    chip_smoke's matching options (sub-pixel refinement + VFC, the SOF
+    filter) and with LMEDS and the Stewenius solver together, two frames
     of StereoRefine at chip_smoke's stream config (a small pool) with a
     checkpoint round trip, and the FileStorage readers, and never imports
     jax."""
@@ -67,13 +69,30 @@ def test_port_runs_without_importing_jax():
         base = c.PoseConfig(robust=c.RobustConfig(batch_hypotheses=8,
                                                   max_batches=2))
         Kt = torch.tensor(K)
-        for i, (name, change, _) in enumerate(chip_smoke.pose_menu(c)):
+        for i, (name, change, _) in enumerate(
+                chip_smoke.pose_menu(c, base.robust)):
             cfg = dataclasses.replace(base, **change)
             pose = pipeline.estimate_pose(
                 corr.pts1, corr.pts2, corr.mask, corr.quality, Kt, Kt,
                 torch.zeros(5), torch.zeros(5), cfg,
                 **chip_smoke.pose_streams(torch, robust, cfg, i))
             assert bool(torch.isfinite(pose.R).all()), name
+        both = dataclasses.replace(base, robust=dataclasses.replace(
+            base.robust, estimator=c.PoseEstimator.LMEDS,
+            solver=c.MinimalSolver.STEWENIUS_5PT))
+        fast = c.DetectorConfig(max_keypoints=64, fast_threshold=12.0,
+                                column_bands=4)
+        for name, m_cfg, _ in chip_smoke.match_menu(c, c.MatchingConfig()):
+            pipe = pipeline.StereoPipeline(fast, c.DescriptorConfig(), m_cfg,
+                                           both, device="cpu")
+            _, mpose = pipe.run(img1, img2, K, K, np.zeros(5), np.zeros(5),
+                                torch.Generator().manual_seed(0))
+            assert bool(torch.isfinite(mpose.R).all()), name
+            _, mpose = pipe.run_batch(np.stack([img1, img3]),
+                                      np.stack([img2, img4]), K, K,
+                                      np.zeros(5), np.zeros(5),
+                                      torch.Generator().manual_seed(0))
+            assert bool(torch.isfinite(mpose.R).all()), name
         import os, tempfile
         from matchinglib_poselib_torch.models import checkpoint
         from matchinglib_poselib_torch.models.stereo_refine import (
@@ -268,7 +287,8 @@ def test_pose_branches_card_vs_cpu():
     dist = torch.zeros(5, device=dev)
     base = c.PoseConfig(robust=c.RobustConfig(batch_hypotheses=32,
                                               max_batches=4))
-    for i, (name, change, _) in enumerate(chip_smoke.pose_menu(c)):
+    for i, (name, change, _) in enumerate(chip_smoke.pose_menu(c,
+                                                               base.robust)):
         cfg = dataclasses.replace(base, **change)
         streams = chip_smoke.pose_streams(torch, robust, cfg, i)
         pipe = pipeline.StereoPipeline(
@@ -282,6 +302,36 @@ def test_pose_branches_card_vs_cpu():
         if name == "BA":
             assert not chip_smoke.sync_free_checks(torch, corr, pose, Kt,
                                                    dist)
+
+
+@pytest.mark.gpu
+def test_match_menu_card_vs_cpu():
+    """chip_smoke.py phase 4e's checks at a small size: each matching
+    option on the card (K1 twice, K2a twice or once), the CPU path's slots
+    against the card's, and each filter on the card against the CPU from
+    the same correspondences."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke
+    from matchinglib_poselib_torch import config as c
+    from matchinglib_poselib_torch.models import pipeline
+
+    img1, img2, K, _, _ = chip_smoke.render_scene(0, 480, 240)
+    det = c.DetectorConfig(max_keypoints=512, fast_threshold=12.0)
+    i1, i2 = (torch.from_numpy(x).cuda() for x in (img1, img2))
+    for name, m_cfg, expected in chip_smoke.match_menu(c, c.MatchingConfig()):
+        kernels.reset_launch_counts()
+        corr = pipeline.get_correspondences(i1, i2, det, c.DescriptorConfig(),
+                                            m_cfg)
+        counts = kernels.launch_counts()
+        assert all(counts[k] == v for k, v in expected.items()), (name,
+                                                                  counts)
+        agree = chip_smoke.cpu_agreement(torch, pipeline, corr, img1, img2,
+                                         det, c.DescriptorConfig(), m_cfg)
+        assert min(agree.values()) >= 0.99, (name, agree)
+        _, fails = chip_smoke.filters_card_vs_cpu(
+            torch, pipeline, i1, i2, det, c.DescriptorConfig(), m_cfg)
+        assert not fails, (name, fails)
 
 
 @pytest.mark.gpu

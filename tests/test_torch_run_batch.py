@@ -58,24 +58,15 @@ from matchinglib_poselib_torch.utils.profiling import (
 from chip_smoke import render_scene
 from conftest import random_pose, synthetic_correspondences
 from test_torch_helpers import (
-    dir_angle_deg, jax_degen_uniforms, jax_uniforms, n, rot_angle_deg, t,
+    COUNTERS, assert_pair_equal, assert_pose_equal, dir_angle_deg,
+    jax_pair_streams, n, rot_angle_deg, t,
 )
 
-COUNTERS = ("n_models_generated", "n_models_rejected", "n_points_verified",
-            "n_lo_refinements")
 FAST = dict(kind="FAST", max_keypoints=512, fast_threshold=12.0,
             column_bands=8)
 ROBUST = dict(batch_hypotheses=64, max_batches=4)
 SEEDS = (0, 1, 2)
 REJECTED_RTOL = 0.02
-
-
-def _jax_streams(key, P, robust):
-    """Pair i's streams from the i-th key of split(key, P), stacked."""
-    (nb, B, k), _ = trob.sample_shapes(robust)
-    keys = jax.random.split(key, P)
-    return (torch.stack([jax_uniforms(kk, nb, B, k) for kk in keys]),
-            torch.stack([jax_degen_uniforms(kk, B) for kk in keys]))
 
 
 def _scenes(seeds, height=240, width=480):
@@ -139,7 +130,7 @@ def _run_batch_both(seeds, height, width, det, robust):
         jnp.asarray(imgs1), jnp.asarray(imgs2), jnp.asarray(K),
         jnp.asarray(K), jnp.zeros(5), jnp.zeros(5), key)
     pose_cfg = tcfg.PoseConfig(robust=tcfg.RobustConfig(**robust))
-    U, D = _jax_streams(key, len(seeds), pose_cfg.robust)
+    U, D = jax_pair_streams(key, len(seeds), pose_cfg.robust)
     pipe = _pipe(pose_cfg, det)
     tcorr, tpose = pipe.run_batch(t(imgs1), t(imgs2), t(K), t(K),
                                   torch.zeros(5), torch.zeros(5),
@@ -249,7 +240,7 @@ def synthetic_vs_jax():
     jpose = jax.vmap(one)(*jin, keys)
     single = jax.jit(one)
     jsingles = [single(*(a[i] for a in jin), keys[i]) for i in range(P)]
-    U, D = _jax_streams(key, P, _tcfg().robust)
+    U, D = jax_pair_streams(key, P, _tcfg().robust)
     return (p1, p2, m, q), jpose, jsingles, (U, D)
 
 
@@ -297,23 +288,6 @@ def test_single_pair_counters_match_jax(synthetic_vs_jax, i):
 # ---------------------------------------------------------------------------
 
 
-def _assert_pair_equal(corr, pose, c, p, i):
-    for name in ("pts1", "pts2", "mask", "quality", "distance"):
-        assert torch.equal(getattr(corr, name)[i], getattr(c, name)), name
-    for side in ("kps1", "kps2"):
-        for a, b in zip(getattr(corr, side), getattr(c, side)):
-            assert torch.equal(a[i], b), side
-    _assert_pose_equal(pose, p, i)
-
-
-def _assert_pose_equal(pose, p, i):
-    for name in ("inlier_mask", "valid3d", "is_degenerate", *COUNTERS):
-        assert torch.equal(getattr(pose, name)[i], getattr(p, name)), name
-    for name in ("R", "t", "E"):
-        diff = (getattr(pose, name)[i] - getattr(p, name)).abs().max()
-        assert float(diff) <= 1e-5, (name, float(diff))
-
-
 @pytest.mark.parametrize("P", [3, 1])
 @pytest.mark.parametrize("streams", ["explicit", "generator"])
 def test_run_batch_matches_run_per_pair(P, streams):
@@ -321,7 +295,7 @@ def test_run_batch_matches_run_per_pair(P, streams):
     pipe = _pipe()
     args = (t(K), t(K), torch.zeros(5), torch.zeros(5))
     if streams == "explicit":
-        U, D = _jax_streams(jax.random.PRNGKey(1), P, pipe.pose_cfg.robust)
+        U, D = jax_pair_streams(jax.random.PRNGKey(1), P, pipe.pose_cfg.robust)
         corr, pose = pipe.run_batch(imgs1, imgs2, *args, uniforms=U,
                                     degen_uniforms=D)
         singles = [pipe.run(imgs1[i], imgs2[i], *args, uniforms=U[i],
@@ -333,7 +307,7 @@ def test_run_batch_matches_run_per_pair(P, streams):
         singles = [pipe.run(imgs1[i], imgs2[i], *args, gen)
                    for i in range(P)]
     for i, (c, p) in enumerate(singles):
-        _assert_pair_equal(corr, pose, c, p, i)
+        assert_pair_equal(corr, pose, c, p, i)
 
 
 @pytest.mark.parametrize("kind, match", [("SIFT", dict(gms_filter=True)),
@@ -347,13 +321,13 @@ def test_run_batch_float_configs_match_run_per_pair(kind, match):
         tcfg.DescriptorConfig(kind=kind), tcfg.MatchingConfig(**match),
         tcfg.PoseConfig(robust=tcfg.RobustConfig(**ROBUST)), device="cpu")
     args = (t(K), t(K), torch.zeros(5), torch.zeros(5))
-    U, D = _jax_streams(jax.random.PRNGKey(2), 2, pipe.pose_cfg.robust)
+    U, D = jax_pair_streams(jax.random.PRNGKey(2), 2, pipe.pose_cfg.robust)
     corr, pose = pipe.run_batch(imgs1, imgs2, *args, uniforms=U,
                                 degen_uniforms=D)
     for i in range(2):
         c, p = pipe.run(imgs1[i], imgs2[i], *args, uniforms=U[i],
                         degen_uniforms=D[i])
-        _assert_pair_equal(corr, pose, c, p, i)
+        assert_pair_equal(corr, pose, c, p, i)
 
 
 # ---------------------------------------------------------------------------
@@ -392,7 +366,7 @@ def test_pose_options_batched_match_per_pair(option):
         with HostSyncs.traced() as log_i:
             p = tp.estimate_pose(p1[i], p2[i], m[i], q[i], *args,
                                  uniforms=U[i], degen_uniforms=D[i])
-        _assert_pose_equal(pose, p, i)
+        assert_pose_equal(pose, p, i)
         alone.append(loop_iterations(log_i))
     # one host read per iteration of each run of each loop, which runs to
     # its slowest pair
