@@ -96,6 +96,22 @@ Phases (any failure exits non-zero):
      to ``run`` of that pair on the card (slots 100%, inlier masks equal,
      0.01 / 0.05 deg).
 
+  8. the CLIs (``apps_phase``), in-process on the card: frames 1-3 of
+     the sequence written as 8-bit grey PNGs with a KITTI
+     ``calib_cam_to_cam.txt`` (``write_stereo_dir``); the port's native
+     loader decodes each to uint8 / 255 within one f32 ulp (2^-23);
+     ``poselib-test --compInitPose --showRect``: 3 frames within the
+     accuracy bars, K1 and K2a 2 launches each per frame, the rectified
+     PNGs at 512x1392, ``rectified_image`` on the card within 1e-5 of the
+     same call on the CPU; ``poselib-test --stereoRef`` (seeded streams)
+     in the same states as on the CPU; ``matchinglib-test``: each stored
+     ``matches_XXXX.npz`` equal to ``get_correspondences`` on the card for
+     the decoded pair; ``noMatch_poselib-test`` on
+     ``eval/fixtures/semireal_fs`` plain, with ``--refineSOF --refineVFC``
+     and with ``--stereoRef`` (seeded streams): the CSV header, the states
+     and each row within 0.1 / 0.5 deg of the CPU's; ms per frame by stage
+     and host syncs per frame for each CLI.
+
 Prints a JSON ``kernels`` line, one JSON ``step`` line per path, the
 card's name and power limit, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
@@ -1792,6 +1808,344 @@ def batch_options_phase(torch, det, desc, match, pose_cfg, dev, seed):
     return record, failures
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the CLIs on files
+# ---------------------------------------------------------------------------
+
+
+def kitti_calib_text(K, R, t, dist=np.zeros(5)) -> str:
+    """A KITTI calib_cam_to_cam.txt for the rig: camera 0 at the origin,
+    camera 1 at X2 = R X1 + t, both with intrinsics K (the K_xx, D_xx,
+    R_xx, T_xx rows that ``utils.io.load_kitti_calib`` reads)."""
+    def row(name, v):
+        return f"{name}: " + " ".join(f"{x:.12e}" for x in np.ravel(v))
+
+    return "\n".join([
+        row("K_00", K), row("D_00", dist), row("R_00", np.eye(3)),
+        row("T_00", np.zeros(3)), row("K_01", K), row("D_01", dist),
+        row("R_01", R), row("T_01", t)]) + "\n"
+
+
+def write_stereo_dir(directory, pairs, K, R, t):
+    """Write pairs of float images in [0, 1] as 8-bit grey PNGs
+    ``left_XXXX.png`` / ``right_XXXX.png`` (the port's ``write_png``) and
+    the rig's ``calib_cam_to_cam.txt`` into `directory`, the layout
+    ``poselib-test`` reads. Returns the written uint8 images, [(left,
+    right), ...]."""
+    import pathlib
+
+    from matchinglib_poselib_torch.utils import visualize
+
+    d = pathlib.Path(directory)
+    d.mkdir(parents=True, exist_ok=True)
+    written = []
+    for i, pair in enumerate(pairs):
+        u8 = [np.round(np.clip(im, 0.0, 1.0) * 255.0).astype(np.uint8)
+              for im in pair]
+        for side, im in zip(("left", "right"), u8):
+            visualize.write_png(d / f"{side}_{i:04d}.png", im)
+        written.append(tuple(u8))
+    (d / "calib_cam_to_cam.txt").write_text(kitti_calib_text(K, R, t))
+    return written
+
+
+# phase 8: frames of the sequence the CLIs read; the loader's bar (the
+# BT.601 sum 0.299 v + 0.587 v + 0.114 v is v within one f32 ulp below 1);
+# card vs CPU on rectified_image from the same inputs; card vs CPU on the
+# noMatch CLI's rows and the --stereoRef states (phase 4d's bars); the
+# noMatch runs on the repo's FileStorage fixture
+APP_FRAMES = 3
+LOADER_ATOL = 2.0 ** -23
+RECT_CARD_CPU_ATOL = 1e-5
+NOMATCH_RUNS = (("plain", []), ("SOF + VFC", ["--refineSOF", "--refineVFC"]),
+                ("stereoRef", ["--stereoRef"]))
+
+
+def _cli(torch, main, argv, **kw):
+    """One in-process CLI run with its stdout captured: (stdout lines,
+    wall s, kernel launches, host syncs). Fails on a non-zero exit."""
+    import contextlib
+    import io
+
+    from matchinglib_poselib_torch.ops import kernels
+    from matchinglib_poselib_torch.utils.profiling import HostSyncs
+
+    kernels.reset_launch_counts()
+    syncs0 = HostSyncs.count
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv, **kw)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{main.__module__}.main({argv}) exited {rc}")
+    return (buf.getvalue().strip().splitlines(), wall,
+            kernels.launch_counts(), HostSyncs.count - syncs0)
+
+
+def _png_hw(path):
+    """(height, width) from a PNG's IHDR chunk."""
+    head = path.read_bytes()[16:24]
+    return int.from_bytes(head[4:8], "big"), int.from_bytes(head[:4], "big")
+
+
+def _csv_rows(path):
+    import csv
+
+    with open(path) as f:
+        reader = csv.reader(f, delimiter=";")
+        header = next(reader)
+        return header, [dict(zip(header, row)) for row in reader]
+
+
+def _check_loader(native, d, written):
+    """The port's loader on every written PNG against uint8 / 255. Returns
+    (max abs error, failures)."""
+    if not native.available():
+        return None, [f"the native loader did not build: "
+                      f"{native.BUILD_ERROR[-800:]}"]
+    err, failures = 0.0, []
+    for i, pair in enumerate(written):
+        for side, u8 in zip(("left", "right"), pair):
+            got = native.load_image_gray(d / f"{side}_{i:04d}.png")
+            if got is None or got.shape != u8.shape:
+                failures.append(f"loader: {side}_{i:04d}.png not decoded")
+                continue
+            want = u8.astype(np.float32) / np.float32(255.0)
+            err = max(err, float(np.abs(got - want).max()))
+    if err > LOADER_ATOL:
+        failures.append(f"loader: max abs {err} against uint8 / 255")
+    return err, failures
+
+
+def _rectify_card_vs_cpu(torch, rectify, tio, d, K, R, t, dev):
+    """Frame 1's left image rectified for the planted rig on the card and
+    on the CPU from the same inputs: (record, failures)."""
+    img = torch.from_numpy(tio.load_image_gray(d / "left_0000.png")).to(dev)
+    Kt = torch.as_tensor(K, dtype=torch.float32, device=dev)
+    z = torch.zeros(5, device=dev)
+    Rt = torch.as_tensor(R, dtype=torch.float32, device=dev)
+    tt = torch.as_tensor(t, dtype=torch.float32, device=dev)
+    hw = tuple(img.shape)
+    rect = rectify.get_rectification_parameters(Kt, Kt, Rt, tt, z, z, hw)
+    rect_cpu = rectify.get_rectification_parameters(
+        *(x.cpu() for x in (Kt, Kt, Rt, tt, z, z)), hw)
+    args = (img, Kt, z, rect.R1, rect.K_new1, hw)
+    card = rectify.rectified_image(*args)
+    cpu = rectify.rectified_image(*(a.cpu() if hasattr(a, "cpu") else a
+                                    for a in args))
+    rec = {
+        "max_abs_err": float((card.cpu() - cpu).abs().max()),
+        "fields_max_abs_diff": max(
+            float((getattr(rect, f).cpu() - getattr(rect_cpu, f)).abs().max())
+            for f in rect._fields),
+        "filled": float((card > 0).float().mean()),
+    }
+    if dev.type == "cuda":
+        rec["ms"] = _cuda_ms(torch, lambda: rectify.rectified_image(*args),
+                             iters=10)
+        rec["params_ms"] = _cuda_ms(
+            torch, lambda: rectify.get_rectification_parameters(
+                Kt, Kt, Rt, tt, z, z, hw), iters=10)
+    failures = []
+    if rec["max_abs_err"] > RECT_CARD_CPU_ATOL:
+        failures.append(f"rectified_image card vs CPU: max abs "
+                        f"{rec['max_abs_err']}")
+    if rec["filled"] < 0.8:
+        failures.append(f"rectified_image: only {rec['filled']:.3f} filled")
+    return rec, failures
+
+
+def apps_phase(torch, dev, seed, smi, size=(HEIGHT, WIDTH)):
+    """Phase 8: the three CLIs on files, in-process on `dev` (the card;
+    the CPU rehearses it, ``chip_probes/apps_rehearsal.py``), each
+    comparison's second run on the CPU; images of `size` (see the module
+    docstring). Returns (record, failures)."""
+    import pathlib
+    import tempfile
+
+    from matchinglib_poselib_torch import native
+    from matchinglib_poselib_torch.apps import (
+        common, matchinglib_test, nomatch_poselib_test, poselib_test)
+    from matchinglib_poselib_torch.models import pipeline
+    from matchinglib_poselib_torch.ops import rectify, robust
+    from matchinglib_poselib_torch.utils import io as tio
+
+    t_phase = time.perf_counter()
+    failures = []
+    rec = {"card": smi, "frames": APP_FRAMES}
+    height, width = size
+    pairs, K, R, t = render_sequence(seed, APP_FRAMES, width, height)
+    fs_dir = pathlib.Path(__file__).resolve().parent / "eval" / "fixtures" \
+        / "semireal_fs"
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        d = tmp / "imgs"
+        written = write_stereo_dir(d, pairs, K, R, t)
+        rec["loader_max_abs_err"], fails = _check_loader(native, d, written)
+        failures.extend(fails)
+        img_args = ["--img_path", str(d)]
+
+        # poselib-test --compInitPose --showRect, the CLI's own samples
+        out = tmp / "pose"
+        lines, wall, launches, syncs = _cli(
+            torch, poselib_test.main,
+            img_args + ["--compInitPose", "--showRect", "--output_path",
+                        str(out)], device=dev)
+        frames = [json.loads(x) for x in lines[:-1]]
+        summary = json.loads(lines[-1])
+        rec["poselib_test"] = {
+            "frames": frames, "wall_s": wall, "launches": launches,
+            "host_syncs_per_frame": syncs / APP_FRAMES,
+            "ms_per_frame": {k: v / APP_FRAMES
+                             for k, v in summary["stage_ms"].items()}}
+        if len(frames) != APP_FRAMES:
+            failures.append(f"poselib-test: {len(frames)} frame lines")
+        for f in frames:
+            if not (f["R_diff_deg"] < MAX_ROT_DEG
+                    and f["t_angDiff_deg"] < MAX_TANG_DEG):
+                failures.append(f"poselib-test frame {f['frame']}: "
+                                f"{f['R_diff_deg']} / {f['t_angDiff_deg']}"
+                                " deg against the planted pose")
+        for i in range(APP_FRAMES):
+            for name, hw in (("rect_left", size), ("rect_right", size),
+                             ("rect_pair", (height, 2 * width))):
+                path = out / f"{name}_{i:04d}.png"
+                if not path.exists() or _png_hw(path) != hw:
+                    failures.append(f"poselib-test: {path.name} missing or "
+                                    "not " + "x".join(map(str, hw)))
+        rec["rectified_image"], fails = _rectify_card_vs_cpu(
+            torch, rectify, tio, d, K, R, t, dev)
+        failures.extend(fails)
+
+        # the same samples on the card and the CPU for the comparisons
+        saved = common.frame_streams, common.stereo_refine_streams
+        common.frame_streams = lambda i, cfg: pose_streams(
+            torch, robust, cfg, seed + 100 + i)
+        common.stereo_refine_streams = lambda cfg: SeededStreams(
+            torch, cfg.pose.robust, seed + 200)
+        try:
+            sr_args = img_args + ["--stereoRef", "--compInitPose"]
+            lines, wall, launches, syncs = _cli(torch, poselib_test.main,
+                                                sr_args, device=dev)
+            t0 = time.perf_counter()
+            lines_cpu = _cli(torch, poselib_test.main, sr_args,
+                             device="cpu")[0]
+            card_f = [json.loads(x) for x in lines[:-1]]
+            cpu_f = [json.loads(x) for x in lines_cpu[:-1]]
+            rec["poselib_test_stereoRef"] = {
+                "frames": card_f, "wall_s": wall, "launches": launches,
+                "cpu_rerun_s": time.perf_counter() - t0,
+                "host_syncs_per_frame": syncs / APP_FRAMES,
+                "ms_per_frame": {
+                    k: v / APP_FRAMES
+                    for k, v in json.loads(lines[-1])["stage_ms"].items()}}
+            states = [f["state"] for f in card_f]
+            if states != [f["state"] for f in cpu_f] or states[0] != "init":
+                failures.append(f"poselib-test --stereoRef: states {states} "
+                                f"on the card, {[f['state'] for f in cpu_f]}"
+                                " on the CPU")
+            for f in card_f:
+                if f["state"] in ACCEPTED and not (
+                        f["R_diff_deg"] < MAX_ROT_DEG
+                        and f["t_angDiff_deg"] < MAX_TANG_DEG):
+                    failures.append(f"poselib-test --stereoRef frame "
+                                    f"{f['frame']}: {f['R_diff_deg']} / "
+                                    f"{f['t_angDiff_deg']} deg")
+            rec["nomatch_poselib_test"] = {}
+            for name, extra in NOMATCH_RUNS:
+                args = ["--sequ_path", str(fs_dir), "--ovf_ext", "yaml.gz",
+                        *extra, "--output_path"]
+                _, wall, _, syncs = _cli(torch, nomatch_poselib_test.main,
+                                         args + [str(tmp / "nc")],
+                                         device=dev)
+                _cli(torch, nomatch_poselib_test.main,
+                     args + [str(tmp / "np")], device="cpu")
+                header, rows = _csv_rows(tmp / "nc" / "results.csv")
+                cpu_rows = _csv_rows(tmp / "np" / "results.csv")[1]
+                n_rows = len(rows)
+                nrec = {"wall_s": wall, "states": [r["state"] for r in rows],
+                        # the warm-up frame reads as a frame does
+                        "host_syncs_per_frame": syncs / (n_rows + 1),
+                        "ms_per_frame": {
+                            col: float(np.mean([float(r[col] or 0)
+                                                for r in rows]))
+                            for col in ("filtering_ms",
+                                        "robEstimationAndRef_ms",
+                                        "stereoRefine_ms")},
+                        "R_diffAll": [float(r["R_diffAll"]) for r in rows],
+                        "card_vs_cpu_deg": [
+                            (abs(float(a["R_diffAll"])
+                                 - float(b["R_diffAll"])),
+                             abs(float(a["t_angDiff_deg"])
+                                 - float(b["t_angDiff_deg"])))
+                            for a, b in zip(rows, cpu_rows)]}
+                rec["nomatch_poselib_test"][name] = nrec
+                if header != list(nomatch_poselib_test.CSV_COLUMNS):
+                    failures.append(f"noMatch {name}: CSV header differs")
+                if n_rows != 3 or len(cpu_rows) != n_rows:
+                    failures.append(f"noMatch {name}: {n_rows} rows on the "
+                                    f"card, {len(cpu_rows)} on the CPU")
+                if nrec["states"] != [r["state"] for r in cpu_rows]:
+                    failures.append(f"noMatch {name}: states {nrec['states']}"
+                                    " on the card, "
+                                    f"{[r['state'] for r in cpu_rows]} on the"
+                                    " CPU")
+                for rd, td in nrec["card_vs_cpu_deg"]:
+                    if rd >= POSE_ROT_DEG or td >= POSE_TANG_DEG:
+                        failures.append(f"noMatch {name}: card vs CPU "
+                                        f"{rd} / {td} deg")
+                if max(nrec["R_diffAll"]) >= MAX_ROT_DEG:
+                    failures.append(f"noMatch {name}: R_diffAll "
+                                    f"{nrec['R_diffAll']}")
+        finally:
+            common.frame_streams, common.stereo_refine_streams = saved
+
+        # matchinglib-test: the stored matches against get_correspondences
+        # on the card for the decoded pair
+        mout = tmp / "match"
+        lines, wall, launches, syncs = _cli(
+            torch, matchinglib_test.main,
+            img_args + ["--output_path", str(mout)], device=dev)
+        summary = json.loads(lines[-1])
+        rec["matchinglib_test"] = {
+            "total_matches": summary["total_matches"], "wall_s": wall,
+            "launches": launches,
+            "host_syncs_per_frame": syncs / APP_FRAMES,
+            "ms_per_frame": {k: v / APP_FRAMES
+                             for k, v in summary["stage_ms"].items()}}
+        det, desc, match = common.matching_configs(
+            matchinglib_test.build_parser().parse_args(img_args))
+        for i in range(APP_FRAMES):
+            imgs = [torch.from_numpy(tio.load_image_gray(
+                d / f"{side}_{i:04d}.png")).to(dev)
+                for side in ("left", "right")]
+            corr = pipeline.get_correspondences(*imgs, det, desc, match)
+            m = corr.mask.cpu().numpy()
+            stored = np.load(mout / f"matches_{i:04d}.npz")
+            for name in ("pts1", "pts2", "distance"):
+                want = getattr(corr, name).cpu().numpy()[m]
+                if not np.array_equal(stored[name], want):
+                    failures.append(f"matchinglib-test pair {i}: {name} "
+                                    "differs from get_correspondences")
+            if not (mout / f"matches_{i:04d}.png").exists():
+                failures.append(f"matchinglib-test: matches_{i:04d}.png "
+                                "missing")
+    for cli in ("poselib_test", "poselib_test_stereoRef", "matchinglib_test"):
+        got = rec[cli]["launches"]
+        if got["fast_nms"] != 2 * APP_FRAMES or got["knn2"] != 2 * APP_FRAMES:
+            failures.append(f"{cli}: launches {got}, expected K1 and K2a "
+                            f"{2 * APP_FRAMES} each")
+    rec["launches_per_frame"] = {
+        cli: {k: v / APP_FRAMES for k, v in rec[cli]["launches"].items()}
+        for cli in ("poselib_test", "poselib_test_stereoRef",
+                    "matchinglib_test")}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec, failures
+
+
 def _bound(bytes_moved, time_ops):
     """(bound ms, what bounds it): the larger of the bytes over the HBM
     rate and the operation time."""
@@ -2036,6 +2390,14 @@ def main(argv=None) -> int:
                   f"1-{BATCH_OPTION_PAIRS}): FAST t=12 / 2048 kp / ORB / "
                   "GMBSOF + subpix + VFC / 96x12 5pt LMEDS, Stewenius",
                   opt_rec))
+    # 8. the three CLIs on files
+    apps_rec, fails = apps_phase(torch, dev, args.seed, smi)
+    failures.extend(f"apps: {f}" for f in fails)
+    steps.append((f"apps: poselib-test, --stereoRef, matchinglib-test on "
+                  f"render_sequence frames 1-{APP_FRAMES} as PNGs; "
+                  "noMatch_poselib-test on eval/fixtures/semireal_fs",
+                  apps_rec))
+    apps_launches = apps_rec["launches_per_frame"]
     for c_name, rec in steps:
         agree = rec.get("cpu_agree")
         if agree and min(agree.values()) < 0.99:
@@ -2081,6 +2443,7 @@ def main(argv=None) -> int:
          "launches_match_menu": {k: v["fast_nms"]
                                  for k, v in match_launches.items()},
          "launches_batch_options": opt_rec["launches"]["fast_nms"],
+         "launches_apps": {k: v["fast_nms"] for k, v in apps_launches.items()},
          "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
          "bound_pipe": k1_pipe if k1_bound[1] == "operations" else "memory",
@@ -2099,6 +2462,7 @@ def main(argv=None) -> int:
          "launches_match_menu": {k: v["knn2"]
                                  for k, v in match_launches.items()},
          "launches_batch_options": opt_rec["launches"]["knn2"],
+         "launches_apps": {k: v["knn2"] for k, v in apps_launches.items()},
          "ms": k2_ms[0], "plain_ms": k2_plain_ms[0],
          "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
          "bound_route": "tensor cores" if k2_bound is k2_tc else "popc",
@@ -2117,6 +2481,7 @@ def main(argv=None) -> int:
          "launches_match_menu": {k: v["knn2_l2"]
                                  for k, v in match_launches.items()},
          "launches_batch_options": opt_rec["launches"]["knn2_l2"],
+         "launches_apps": {k: v["knn2_l2"] for k, v in apps_launches.items()},
          "ms": k2b["sift"][0]["ms"], "plain_ms": k2b["sift"][0]["plain_ms"],
          "device_ms": k2b["sift"][0]["device_ms"],
          "plain_device_ms": k2b["sift"][0]["plain_device_ms"],

@@ -69,6 +69,19 @@ def img_to_cam(pts: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
     return torch.stack([x, y], dim=-1)
 
 
+def cam_to_img(pts: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """Normalized camera -> pixel coords (pose_helper.cpp:1134
+    CamToImgCoordTrans)."""
+    fx = K[..., 0, 0][..., None]
+    fy = K[..., 1, 1][..., None]
+    s = K[..., 0, 1][..., None]
+    cx = K[..., 0, 2][..., None]
+    cy = K[..., 1, 2][..., None]
+    x = fx * pts[..., 0] + s * pts[..., 1] + cx
+    y = fy * pts[..., 1] + cy
+    return torch.stack([x, y], dim=-1)
+
+
 def undistort_oulu(
     pts: torch.Tensor, dist: torch.Tensor, iterations: int = 20
 ) -> torch.Tensor:
@@ -240,6 +253,15 @@ def rotation_angle(R: torch.Tensor) -> torch.Tensor:
     """Rotation angle (radians) of R."""
     tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
     return torch.arccos(torch.clamp(0.5 * (tr - 1.0), -1.0, 1.0))
+
+
+def angles_from_rot(R: torch.Tensor) -> torch.Tensor:
+    """Euler angles (roll, pitch, yaw) in degrees (pose_helper.cpp:676
+    getAnglesRotMat, R = Rx Ry Rz). Returns (..., 3) degrees."""
+    pitch = -torch.arcsin(torch.clamp(R[..., 0, 2], -1.0, 1.0))
+    roll = torch.atan2(R[..., 1, 2], R[..., 2, 2])
+    yaw = torch.atan2(R[..., 0, 1], R[..., 0, 0])
+    return torch.stack([roll, pitch, yaw], dim=-1) * (180.0 / math.pi)
 
 
 def compare_poses(R1, t1, R2, t2):

@@ -1,5 +1,5 @@
-"""OpenCV FileStorage reader (yaml / xml, optionally .gz), numpy only
-(the port's own copy of the readers in ``utils/opencv_fs.py``).
+"""OpenCV FileStorage reader and writer (yaml / xml, optionally .gz),
+numpy only (the port's own copy of ``utils/opencv_fs.py``).
 
 Reads the SemiRealSequence frame data the reference's GT-evaluation CLI
 consumes (noMatch_poselib-test/loadMatches.h: readMatchesFromDisk
@@ -16,12 +16,15 @@ ext yaml/yml/xml with optional .gz) without OpenCV:
   [queryIdx, trainIdx, imgIdx, distance].
 
 ``sequ_frame`` assembles one frame's correspondences, GT pose and GT
-inlier mask from the two readers' output.
+inlier mask from the two readers' output. The writers (``write_filestorage``,
+``write_cam_pars``, ``write_matches``) emit the YAML flavor byte for byte as
+the JAX package's writers do.
 """
 
 from __future__ import annotations
 
 import gzip
+import io
 import pathlib
 import re
 from typing import Any
@@ -32,6 +35,7 @@ _DT_TO_NP = {
     "u": np.uint8, "c": np.int8, "w": np.uint16, "s": np.int16,
     "i": np.int32, "f": np.float32, "d": np.float64,
 }
+_NP_TO_DT = {np.dtype(v): k for k, v in _DT_TO_NP.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -255,3 +259,115 @@ def sequ_frame(cam_pars: dict, matches: dict) -> dict:
         "K2_GT": cam_pars["K2"],
         "inlier_mask_GT": inl[q] if inl.size else np.ones(len(q), bool),
     }
+
+
+# ---------------------------------------------------------------------------
+# writing (yaml flavor, byte-compatible with cv::FileStorage readers)
+# ---------------------------------------------------------------------------
+
+
+def _fmt_num(v) -> str:
+    if isinstance(v, (int, np.integer)):
+        return str(int(v))
+    f = float(v)
+    if f == int(f) and abs(f) < 1e16:
+        return f"{int(f)}."
+    return repr(f)
+
+
+def _write_node(buf: io.StringIO, key: str, val: Any, indent: int = 0):
+    pad = " " * indent
+    if isinstance(val, np.ndarray) and val.ndim == 2:
+        dt = _NP_TO_DT.get(val.dtype, "d")
+        buf.write(f"{pad}{key}: !!opencv-matrix\n")
+        buf.write(f"{pad}   rows: {val.shape[0]}\n")
+        buf.write(f"{pad}   cols: {val.shape[1]}\n")
+        buf.write(f'{pad}   dt: {dt}\n')
+        data = ", ".join(_fmt_num(x) for x in val.ravel())
+        buf.write(f"{pad}   data: [ {data} ]\n")
+    elif isinstance(val, (list, tuple, np.ndarray)):
+        flat = np.asarray(val).ravel() if isinstance(val, np.ndarray) else val
+        if len(flat) and isinstance(flat[0], np.ndarray):
+            buf.write(f"{pad}{key}:\n")
+            ip = " " * (indent + 3)
+            for m in flat:
+                m = np.asarray(m)
+                dt = _NP_TO_DT.get(m.dtype, "d")
+                data = ", ".join(_fmt_num(x) for x in m.ravel())
+                buf.write(f"{ip}- !!opencv-matrix\n")
+                buf.write(f"{ip}   rows: {m.shape[0]}\n")
+                buf.write(f"{ip}   cols: {m.shape[1]}\n")
+                buf.write(f"{ip}   dt: {dt}\n")
+                buf.write(f"{ip}   data: [ {data} ]\n")
+        else:
+            data = ", ".join(_fmt_num(x) for x in flat)
+            buf.write(f"{pad}{key}: [ {data} ]\n")
+    elif isinstance(val, str):
+        buf.write(f'{pad}{key}: "{val}"\n')
+    else:
+        buf.write(f"{pad}{key}: {_fmt_num(val)}\n")
+
+
+def write_filestorage(path, nodes: dict):
+    """Write a dict as OpenCV-YAML; gzip if path ends with .gz.
+
+    Matrices -> !!opencv-matrix, lists of matrices -> seq of matrices,
+    flat numeric lists -> flow sequences. (N, 7)/(N, 4) float arrays for
+    keypoints/matches must be passed pre-flattened by the caller via
+    ``.ravel()`` to match OpenCV's flat persistence encoding.
+    """
+    buf = io.StringIO()
+    buf.write("%YAML:1.0\n---\n")
+    for k, v in nodes.items():
+        _write_node(buf, k, v)
+    raw = buf.getvalue().encode()
+    p = pathlib.Path(path)
+    if p.suffix == ".gz":
+        p.write_bytes(gzip.compress(raw))
+    else:
+        p.write_bytes(raw)
+
+
+def write_cam_pars(path, actFrameCnt, actR, actT, K1, K2, actKd1, actKd2):
+    write_filestorage(path, {
+        "actFrameCnt": int(actFrameCnt),
+        "actR": np.asarray(actR, np.float64).reshape(3, 3),
+        "actT": np.asarray(actT, np.float64).reshape(3, 1),
+        "K1": np.asarray(K1, np.float64),
+        "K2": np.asarray(K2, np.float64),
+        "actKd1": np.asarray(actKd1, np.float64),
+        "actKd2": np.asarray(actKd2, np.float64),
+    })
+
+
+def write_matches(path, kp1, kp2, desc1, desc2, matches, inliers,
+                  kp2_noerr=None, homographies=(), homographies_cam1=(),
+                  src_kp1=None, src_idx1=(), src_kp2=None, src_idx2=(),
+                  corr_type=()):
+    """Write a matchSingleFrameData file. kp1/kp2: (N, 7), matches: (M, 4)."""
+    kp1 = np.asarray(kp1, np.float32)
+    kp2 = np.asarray(kp2, np.float32)
+    if kp2_noerr is None:
+        kp2_noerr = kp2
+    if src_kp1 is None:
+        src_kp1 = np.zeros((0, 7), np.float32)
+    if src_kp2 is None:
+        src_kp2 = np.zeros((0, 7), np.float32)
+    write_filestorage(path, {
+        "frameKeypoints1": kp1.ravel(),
+        "frameKeypoints2": kp2.ravel(),
+        "frameDescriptors1": np.asarray(desc1),
+        "frameDescriptors2": np.asarray(desc2),
+        "frameMatches": np.asarray(matches, np.float32).ravel(),
+        "frameInliers": np.asarray(inliers).astype(np.int32),
+        "frameKeypoints2NoErr": np.asarray(kp2_noerr, np.float32).ravel(),
+        "frameHomographies": [np.asarray(h, np.float64)
+                              for h in homographies],
+        "frameHomographiesCam1": [np.asarray(h, np.float64)
+                                  for h in homographies_cam1],
+        "srcImgPatchKp1": np.asarray(src_kp1, np.float32).ravel(),
+        "srcImgPatchKpImgIdx1": np.asarray(src_idx1, np.int32),
+        "srcImgPatchKp2": np.asarray(src_kp2, np.float32).ravel(),
+        "srcImgPatchKpImgIdx2": np.asarray(src_idx2, np.int32),
+        "corrType": np.asarray(corr_type, np.int32),
+    })

@@ -111,6 +111,15 @@ def jax_stereo_refine_streams(seed, cfg, key=None):
     return streams
 
 
+def jax_cli_frame_streams(i, pose_cfg):
+    """The samples the JAX CLIs draw for frame i (``fold_in(PRNGKey(0),
+    i)``), as the port's ``apps.common.frame_streams`` returns them."""
+    (nb, B, k), _ = sample_shapes(pose_cfg.robust)
+    key = jax.random.fold_in(jax.random.PRNGKey(0), i)
+    return dict(uniforms=jax_uniforms(key, nb, B, k),
+                degen_uniforms=jax_degen_uniforms(key, B))
+
+
 def jax_pair_streams(key, P, robust):
     """A batch's streams as the JAX package's ``run_batch`` draws them:
     pair i's from the i-th key of split(key, P), stacked -> ((P,

@@ -2,6 +2,7 @@
 CUDA card) each kernel equal to its plain version."""
 
 import os
+import shutil
 import subprocess
 import sys
 import textwrap
@@ -134,6 +135,82 @@ def test_port_runs_without_importing_jax():
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip().endswith("OK")
+
+
+def test_host_layer_and_clis_run_without_importing_jax(tmp_path):
+    """A fresh interpreter imports the port's CLIs, ``utils.io``,
+    ``utils.visualize``, ``native`` and ``ops.rectify``, runs each CLI on
+    the CPU at a tiny size (poselib-test with --showRect, noMatch with
+    --stereoRef on the FileStorage fixture) and never imports jax or the
+    JAX package."""
+    code = textwrap.dedent(f"""
+        import contextlib, io, pathlib, sys
+        import torch
+        torch.set_num_threads(2)
+        import chip_smoke
+        from matchinglib_poselib_torch import native
+        from matchinglib_poselib_torch.apps import (
+            common, matchinglib_test, nomatch_poselib_test, poselib_test)
+        from matchinglib_poselib_torch.ops import rectify
+        from matchinglib_poselib_torch.utils import io as tio, visualize
+        d = pathlib.Path({str(tmp_path)!r})
+        pairs, K, R, t = chip_smoke.render_sequence(0, 2, 192, 96)
+        chip_smoke.write_stereo_dir(d / "imgs", pairs, K, R, t)
+        img = ["--img_path", str(d / "imgs"), "--f_nr", "64"]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert matchinglib_test.main(
+                img + ["--output_path", str(d / "m")], device="cpu") == 0
+            assert poselib_test.main(
+                img + ["--showRect", "--compInitPose", "--output_path",
+                       str(d / "p")], device="cpu") == 0
+            assert nomatch_poselib_test.main(
+                ["--sequ_path", "eval/fixtures/semireal_fs", "--ovf_ext",
+                 "yaml.gz", "--no_warmup", "--stereoRef",
+                 "--maxPoolCorrespondences", "512", "--output_path",
+                 str(d / "n")], device="cpu") == 0
+        assert (d / "m" / "matches_0001.npz").exists()
+        assert (d / "p" / "rect_pair_0001.png").exists()
+        assert (d / "n" / "results.csv").exists()
+        bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+               or m.startswith("matchinglib_poselib_tpu")]
+        assert not bad, bad
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().endswith("OK")
+
+
+def test_native_loader_builds_only_into_build_dir(tmp_path):
+    """Building the port's image loader writes nothing outside
+    ``matchinglib_poselib_torch/_build/`` (a copy of the package, built in
+    a fresh interpreter)."""
+    if shutil.which("g++") is None:
+        pytest.skip("no host C++ compiler")
+    src = os.path.join(REPO, "matchinglib_poselib_torch")
+    shutil.copytree(src, tmp_path / "matchinglib_poselib_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    before = {p for p in tmp_path.rglob("*")}
+    code = textwrap.dedent("""
+        from matchinglib_poselib_torch import native
+        assert native.available(), native.BUILD_ERROR
+        assert native.load_image_gray("/nonexistent.png") is None
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(tmp_path),
+               PYTHONDONTWRITEBYTECODE="1")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=240)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    new = {p for p in tmp_path.rglob("*")} - before
+    build = tmp_path / "matchinglib_poselib_torch" / "_build"
+    assert new and all(p == build or build in p.parents for p in new), new
+    assert [p.name for p in build.iterdir() if p.suffix == ".so"] == [
+        p.name for p in new if p.suffix == ".so"]
 
 
 def test_stereo_refine_defaults_to_the_card():
