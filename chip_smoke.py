@@ -95,6 +95,16 @@ Phases (any failure exits non-zero):
      K2a twice per pair, both pairs within the accuracy bars, each equal
      to ``run`` of that pair on the card (slots 100%, inlier masks equal,
      0.01 / 0.05 deg).
+  7c. the batch with each pose branch (``branch_batch_phase``):
+     ``run_batch`` on the sequence's first 4 pairs with AutoTh, Halign,
+     BA and Kneip, each at phase 4d's PoseConfig with seeded explicit
+     streams (``branch_streams``): K1 once, K2a twice per pair, every pair
+     within the branch's accuracy bars and equal to its own ``run`` on the
+     card (slots 100%, inlier masks equal, 0.01 / 0.05 deg); per branch
+     ms per batch (mean and median of 3 after the warm one), the 4 pairs'
+     ``run`` ms one by one, host syncs per batch, device ops and busy ms
+     of one profiled batch, printed with the card's name and power limit
+     (``batch_branch`` lines), and the phase's wall seconds.
 
   8. the CLIs (``apps_phase``), in-process on the card: frames 1-3 of
      the sequence written as 8-bit grey PNGs with a KITTI
@@ -1808,6 +1818,122 @@ def batch_options_phase(torch, det, desc, match, pose_cfg, dev, seed):
     return record, failures
 
 
+# phase 7c: run_batch with each of phase 4d's pose branches (AutoTh,
+# Halign, BA, Kneip) on frames 1-BRANCH_BATCH_PAIRS of the sequence, at
+# the PoseConfig phase 4d uses for it; timed batches after the warm one
+BRANCH_BATCH_PAIRS = 4
+BRANCH_BATCH_TIMED_RUNS = 3
+BRANCH_BATCH_NAMES = ("AutoTh", "Halign", "BA", "Kneip")
+
+
+def branch_streams(torch, robust, pose_cfg, seed, pairs):
+    """Seeded explicit streams of a batch for any pose branch: pair i's
+    from ``pose_streams`` with seed + i, stacked on a leading pair axis."""
+    per = [pose_streams(torch, robust, pose_cfg, seed + i)
+           for i in range(pairs)]
+    return {k: torch.stack([p[k] for p in per]) for k in per[0]}
+
+
+def branch_batch_phase(torch, cfg, det, desc, match, pose_cfg, dev, seed,
+                       smi):
+    """Phase 7c: for each of BRANCH_BATCH_NAMES, ``run_batch`` on the
+    sequence's first BRANCH_BATCH_PAIRS pairs at that branch's phase-4d
+    PoseConfig with seeded explicit streams (``branch_streams``): counters
+    from 0, one batch, counters read back (K1 once, K2a twice per pair);
+    every pair within the branch's accuracy bars; each pair equal to its
+    own ``run`` on the card (``batch_vs_run``), the pairs' ``run`` timed
+    one by one; BRANCH_BATCH_TIMED_RUNS timed batches; host syncs of the
+    batch; device ops and busy ms of one profiled batch. Returns ({branch:
+    record}, failures)."""
+    from matchinglib_poselib_torch.models import pipeline
+    from matchinglib_poselib_torch.ops import kernels, robust
+    from matchinglib_poselib_torch.utils.profiling import HostSyncs
+
+    t_phase = time.perf_counter()
+    pairs, K, R_true, t_true = _sequence(seed)
+    pairs = pairs[:BRANCH_BATCH_PAIRS]
+    P = len(pairs)
+    imgs1 = torch.from_numpy(np.stack([a for a, _ in pairs])).to(dev)
+    imgs2 = torch.from_numpy(np.stack([b for _, b in pairs])).to(dev)
+    Kt = torch.from_numpy(K).to(dev)
+    dist = torch.zeros(5, device=dev)
+    menu = {name: (change, bars) for name, change, bars
+            in pose_menu(cfg, pose_cfg.robust)}
+    records, failures = {}, []
+    for b_i, name in enumerate(BRANCH_BATCH_NAMES):
+        t_branch = time.perf_counter()
+        change, bars = menu[name]
+        b_cfg = dataclasses.replace(pose_cfg, **change)
+        streams = {k: v.to(dev) for k, v in branch_streams(
+            torch, robust, b_cfg, seed + 50 + 10 * b_i, P).items()}
+        pipe = pipeline.StereoPipeline(det, desc, match, b_cfg, device=dev)
+
+        def batch():
+            return pipe.run_batch(imgs1, imgs2, Kt, Kt, dist, dist,
+                                  **streams)
+
+        # the main path: counts set to 0 just before, read just after
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with HostSyncs.traced() as log:
+            corr, pose = batch()
+        torch.cuda.synchronize()
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        launches = kernels.launch_counts()
+        fails = [f"{k} launched {launches[k]} times in the batch (expected "
+                 f"{v})" for k, v in {"fast_nms": 1, "knn2": 2 * P,
+                                      "knn2_l2": 0}.items()
+                 if launches[k] != v]
+        if not bool(torch.isfinite(pose.R).all()
+                    and torch.isfinite(pose.t).all()):
+            fails.append("non-finite pose")
+        per_pair = []
+        for i in range(P):
+            row = {"n_corr": int(corr.n[i]),
+                   "n_inliers": int(pose.n_inliers[i]),
+                   "halign_error_code": int(pose.halign_error_code[i]),
+                   "rot_err_deg": _rot_deg(R_true, pose.R[i].cpu().numpy()),
+                   "t_err_deg": _dir_deg(t_true, pose.t[i].cpu().numpy())}
+            per_pair.append(row)
+            if (row["rot_err_deg"] >= bars[0] or row["t_err_deg"] >= bars[1]
+                    or row["n_corr"] < MIN_CORR
+                    or row["n_inliers"] < MIN_INLIERS):
+                fails.append(f"pair {i + 1} off the accuracy bars: {row}")
+        # each pair alone through run, with its own streams, timed
+        singles, run_ms = [], []
+        for i in range(P):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            singles.append(pipe.run(imgs1[i], imgs2[i], Kt, Kt, dist, dist,
+                                    **{k: v[i] for k, v in streams.items()}))
+            torch.cuda.synchronize()
+            run_ms.append((time.perf_counter() - t0) * 1e3)
+        vs_run, f = batch_vs_run(torch, corr, pose, singles)
+        fails += f
+        batch_ms = []
+        for _ in range(BRANCH_BATCH_TIMED_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch()
+            torch.cuda.synchronize()
+            batch_ms.append((time.perf_counter() - t0) * 1e3)
+        busy_ms, device_ops, prof_wall_ms = _profile_step(torch, batch)
+        failures.extend(f"{name}: {x}" for x in fails)
+        records[name] = {
+            "pairs": P, "card": smi, "launches": launches,
+            "host_syncs_per_batch": len(log), "warm_ms": warm_ms,
+            "runs": BRANCH_BATCH_TIMED_RUNS,
+            "ms_mean": float(np.mean(batch_ms)),
+            "ms_median": float(np.median(batch_ms)), "batch_ms": batch_ms,
+            "pairs_one_by_one_ms": float(np.sum(run_ms)),
+            "run_ms": run_ms, "per_pair": per_pair, "batch_vs_run": vs_run,
+            "profiled_batch": {"wall_ms": prof_wall_ms,
+                               "device_busy_ms": busy_ms,
+                               "device_ops": device_ops},
+            "branch_s": time.perf_counter() - t_branch}
+    return records, failures, time.perf_counter() - t_phase
+
+
 # ---------------------------------------------------------------------------
 # phase 8: the CLIs on files
 # ---------------------------------------------------------------------------
@@ -2390,6 +2516,21 @@ def main(argv=None) -> int:
                   f"1-{BATCH_OPTION_PAIRS}): FAST t=12 / 2048 kp / ORB / "
                   "GMBSOF + subpix + VFC / 96x12 5pt LMEDS, Stewenius",
                   opt_rec))
+    # 7c. run_batch with each pose branch of phase 4d's menu
+    branch_recs, fails, branch_s = branch_batch_phase(
+        torch, cfg, det, desc, match, pose_cfg, dev, args.seed, smi)
+    failures.extend(f"batch {f}" for f in fails)
+    for b_name, rec in branch_recs.items():
+        print(json.dumps({"batch_branch": b_name, **{
+            k: rec[k] for k in ("card", "pairs", "ms_mean", "ms_median",
+                                "pairs_one_by_one_ms", "host_syncs_per_batch",
+                                "profiled_batch", "branch_s")}}))
+    print(json.dumps({"phase_7c_s": branch_s}))
+    steps.extend(
+        (f"batch of {BRANCH_BATCH_PAIRS} (render_sequence frames 1-"
+         f"{BRANCH_BATCH_PAIRS}): FAST t=12 / 2048 kp / ORB / GMBSOF / "
+         f"96x12 5pt USAC / pose {b_name}", rec)
+        for b_name, rec in branch_recs.items())
     # 8. the three CLIs on files
     apps_rec, fails = apps_phase(torch, dev, args.seed, smi)
     failures.extend(f"apps: {f}" for f in fails)
@@ -2443,6 +2584,8 @@ def main(argv=None) -> int:
          "launches_match_menu": {k: v["fast_nms"]
                                  for k, v in match_launches.items()},
          "launches_batch_options": opt_rec["launches"]["fast_nms"],
+         "launches_batch_branches": {k: v["launches"]["fast_nms"]
+                                     for k, v in branch_recs.items()},
          "launches_apps": {k: v["fast_nms"] for k, v in apps_launches.items()},
          "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
@@ -2462,6 +2605,8 @@ def main(argv=None) -> int:
          "launches_match_menu": {k: v["knn2"]
                                  for k, v in match_launches.items()},
          "launches_batch_options": opt_rec["launches"]["knn2"],
+         "launches_batch_branches": {k: v["launches"]["knn2"]
+                                     for k, v in branch_recs.items()},
          "launches_apps": {k: v["knn2"] for k, v in apps_launches.items()},
          "ms": k2_ms[0], "plain_ms": k2_plain_ms[0],
          "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
@@ -2481,6 +2626,8 @@ def main(argv=None) -> int:
          "launches_match_menu": {k: v["knn2_l2"]
                                  for k, v in match_launches.items()},
          "launches_batch_options": opt_rec["launches"]["knn2_l2"],
+         "launches_batch_branches": {k: v["launches"]["knn2_l2"]
+                                     for k, v in branch_recs.items()},
          "launches_apps": {k: v["knn2_l2"] for k, v in apps_launches.items()},
          "ms": k2b["sift"][0]["ms"], "plain_ms": k2b["sift"][0]["plain_ms"],
          "device_ms": k2b["sift"][0]["device_ms"],

@@ -18,12 +18,11 @@
 - StereoPipeline.run_batch == the JAX package's ``run_batch`` (``jax.vmap``
   of the whole program over a pair axis): one fused FAST+NMS call for
   every image of the batch, descriptors and matching pair by pair, then
-  one ``estimate_pose`` over the pair axis (the default branch).
+  one ``estimate_pose`` over the pair axis (every PoseConfig branch).
 
 Outputs are fixed-shape masked tensors on the inputs' device. Branches of
 the JAX package that are not ported yet (other detectors and descriptors,
-BOLD; AutoTh, Halign, BA and the Kneip polish with a pair axis) raise
-NotImplementedError.
+BOLD) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -40,7 +39,6 @@ from matchinglib_poselib_torch.config import (
     DescriptorConfig,
     DetectorConfig,
     MatchingConfig,
-    MinimalSolver,
     PoseConfig,
 )
 from matchinglib_poselib_torch.ops import features, filters
@@ -205,27 +203,6 @@ def get_correspondences(
     return corr
 
 
-def _unported_pair_branches(cfg: PoseConfig) -> list[str]:
-    """The pose branches of cfg not ported for a pair axis."""
-    return [name for name, on in (
-        ("AutoTh (auto_th)", cfg.auto_th),
-        ("Halign (use_halign)", cfg.use_halign),
-        ("BA (ba.enabled)", cfg.ba.enabled),
-        ("the KNEIP refine (refine.solver=KNEIP)",
-         cfg.refine.enabled and cfg.refine.solver == MinimalSolver.KNEIP),
-    ) if on]
-
-
-def _refuse_unported_pair_branches(cfg: PoseConfig) -> None:
-    """The pose branches not ported for a pair axis raise
-    NotImplementedError naming them."""
-    unported = _unported_pair_branches(cfg)
-    if unported:
-        raise NotImplementedError(
-            "pose stage with a pair axis: not ported yet: "
-            + ", ".join(unported))
-
-
 def _check_shapes(where: str, pairs) -> None:
     """ValueError unless each (name, tensor or None, shape) has its
     shape."""
@@ -235,10 +212,52 @@ def _check_shapes(where: str, pairs) -> None:
                              f"expected {tuple(shape)}")
 
 
-def _stream_shapes(cfg: PoseConfig, P: int, uniforms, degen_uniforms):
+def _stream_shapes(where: str, cfg: PoseConfig, P: int, uniforms=None,
+                   degen_uniforms=None, plane_uniforms=None):
+    """[(name, stream, its shape for P pairs)] of the streams cfg's branch
+    draws, in the order a generator draws them for one pair: plane
+    streams, E streams (Halign's robust-E fallback's, AutoTh's rounds'),
+    degeneracy stream. ValueError, before any work, for a stream given
+    with the wrong shape or one the branch does not take: Halign's
+    degeneracy stream (its fallback's degeneracy result is discarded),
+    the plane streams off Halign. With ``check_degeneracy`` off the
+    degeneracy stream is not drawn; one given is checked and unused."""
     e_shape, d_shape = robust.sample_shapes(cfg.robust)
-    return [("uniforms", uniforms, (P, *e_shape)),
-            ("degen_uniforms", degen_uniforms, (P, *d_shape))]
+    degen = ("degen_uniforms", degen_uniforms, (P, *d_shape))
+    if cfg.use_halign:
+        foreign = "degen_uniforms", degen_uniforms
+        drawn = [("plane_uniforms", plane_uniforms,
+                  (P, cfg.halign.max_planes, *e_shape[:2], 4)),
+                 ("uniforms", uniforms, (P, *e_shape))]
+    else:
+        foreign = "plane_uniforms", plane_uniforms
+        if cfg.auto_th:
+            e_shape = (robust.AUTOTH_ROUNDS, *e_shape)
+        drawn = [("uniforms", uniforms, (P, *e_shape))]
+        if cfg.robust.check_degeneracy:
+            drawn.append(degen)
+        else:
+            _check_shapes(where, [degen])
+    if foreign[1] is not None:
+        raise ValueError(f"{where}: this PoseConfig takes no {foreign[0]}")
+    _check_shapes(where, drawn)
+    return drawn
+
+
+def _streams(cfg: PoseConfig, P: int, generator, device, **given) -> dict:
+    """Every sample stream of cfg's branch for P pairs: those given
+    (checked by ``_stream_shapes`` before any work), the others drawn
+    from `generator` up front, pair by pair in ``_stream_shapes``' order —
+    what as many single-pair calls draw from the same generator, Halign's
+    fallback streams whether the fallback runs or not."""
+    shapes = _stream_shapes("estimate_pose", cfg, P, **given)
+    missing = [(name, shape[1:]) for name, x, shape in shapes if x is None]
+    drawn = [[robust.draw_uniforms(generator, shape, device)
+              for _, shape in missing] for _ in range(P)]
+    out = {name: x for name, x, _ in shapes}
+    for k, (name, _) in enumerate(missing):
+        out[name] = torch.stack([d[k] for d in drawn])
+    return out
 
 
 def _stack(items):
@@ -278,16 +297,15 @@ def estimate_pose(
     K1, K2, dist1, dist2 give a PoseResult with a leading P, pair i equal
     to the call on pair i with pair i's streams (``jax.vmap`` of the JAX
     package's function: the loops run until every pair has exited, each
-    pair keeps its state from its own exit). The default branch only:
-    AutoTh, Halign, BA and the KNEIP refine raise NotImplementedError.
+    pair keeps its state from its own exit), for every branch. A single
+    pair runs as a batch of one.
 
     Sample uniforms, each the counterpart of one JAX key stream (k = 5, or
-    8 for the 8pt solver; B = cfg.robust.batch_hypotheses):
+    8 for the 8pt solver; B = cfg.robust.batch_hypotheses), with a leading
+    P for a pair axis (pair i from the i-th ``split`` of the JAX key):
 
     - default: ``uniforms`` (max_batches, B, k); ``degen_uniforms``
       (1, min(B, 64), 4) for the degeneracy check (``fold_in(key, 777)``);
-      with a pair axis (P, max_batches, B, k) and (P, 1, min(B, 64), 4),
-      pair i from the i-th ``split`` of the JAX key;
     - AutoTh: ``uniforms`` (3 rounds, max_batches, B, k), round r from the
       r-th ``split`` of the key; ``degen_uniforms`` from ``fold_in`` of the
       key left after the rounds;
@@ -295,13 +313,14 @@ def estimate_pose(
       from the r-th ``split`` of Halign's key; ``uniforms`` (max_batches,
       B, k) for the robust-E fallback (the key's first ``split``).
 
-    A stream that is None comes from ``generator``, in the order: plane
-    streams, E streams, degeneracy stream; with a pair axis pair by pair
-    (pair i's E stream, then its degeneracy stream), which is what as
-    many single-pair calls draw from the same generator.
+    A stream that is None is drawn from ``generator`` before any work,
+    pair by pair, each pair's in the order plane streams, E streams (the
+    Halign fallback's whether it runs or not), degeneracy stream: what as
+    many single-pair calls draw from the same generator. A stream of the
+    wrong shape, or one the branch does not take (``degen_uniforms`` with
+    Halign, ``plane_uniforms`` without), raises ValueError.
     """
-    batch = mask.shape[:-1]
-    if not batch and not _unported_pair_branches(cfg):
+    if mask.ndim == 1:
         # one pair is a batch of one: the arithmetic of each pair of a
         # batch, to the bit where the device's batched products are
         # independent of the batch size
@@ -311,15 +330,18 @@ def estimate_pose(
         pose = estimate_pose(
             pts1[None], pts2[None], mask[None], quality[None], K1, K2, dist1,
             dist2, cfg, generator, one(uniforms), one(degen_uniforms),
-            tables)
+            tables, one(plane_uniforms))
         return PoseResult(*(f[0] for f in pose))
-    if batch:
-        _refuse_unported_pair_branches(cfg)
-        P, K = mask.shape
-        _check_shapes("estimate_pose", [
-            ("pts1", pts1, (P, K, 2)), ("pts2", pts2, (P, K, 2)),
-            ("quality", quality, (P, K)),
-            *_stream_shapes(cfg, P, uniforms, degen_uniforms)])
+    P, K = mask.shape
+    _check_shapes("estimate_pose", [
+        ("pts1", pts1, (P, K, 2)), ("pts2", pts2, (P, K, 2)),
+        ("quality", quality, (P, K))])
+    streams = _streams(cfg, P, generator, mask.device, uniforms=uniforms,
+                       degen_uniforms=degen_uniforms,
+                       plane_uniforms=plane_uniforms)
+    uniforms = streams["uniforms"]
+    degen_uniforms = streams.get("degen_uniforms")
+    batch = (P,)
     dt = torch.float32
     maskf = mask.to(dt)
     maskb = mask.to(torch.bool)
@@ -339,26 +361,28 @@ def estimate_pose(
         # Halign (poselib-test --Halign; pose_homography.cpp:127): pose by
         # multi-plane homography extraction and decomposition. On its
         # error codes -1..-4 (pose_homography.cpp:200-266) the caller
-        # falls back to robust E, which runs only then (one host read, the
-        # JAX package's lax.cond)
+        # falls back to robust E: the JAX package's lax.cond, under vmap a
+        # per-pair select. Here the fallback runs when any pair failed
+        # (one host read), for the failed pairs only
         hres = homography_pose.estimate_pose_halign(
             x1, x2, mask, quality, cfg.halign, cfg.robust,
-            threshold_sq=th_sq, plane_uniforms=plane_uniforms,
-            generator=generator)
+            threshold_sq=th_sq, plane_uniforms=streams["plane_uniforms"])
         halign_code = hres.error_code
-        if HostSyncs.read(hres.error_code == 0, "halign"):
-            E, inl, n_sel = hres.E, hres.inlier_mask, hres.n_inliers
-        else:
+        ok = hres.error_code == 0
+        E, inl, n_sel = hres.E, hres.inlier_mask, hres.n_inliers
+        if HostSyncs.read(torch.any(~ok), "halign"):
             # the fallback's degeneracy result is discarded, so it is not
             # computed
             r, _ = robust.estimate_essential_robust(
                 x1, x2, maskf, quality,
                 dataclasses.replace(cfg.robust, check_degeneracy=False),
-                threshold_sq=th_sq, uniforms=uniforms, generator=generator,
-                tables=tables)
-            E, inl, n_sel = r.model, r.inlier_mask, r.n_inliers
-        thr = th_sq.to(dt)
-        degen_flag = hres.is_rotation_only & (hres.error_code == 0)
+                threshold_sq=th_sq, uniforms=uniforms, tables=tables,
+                active=~ok)
+            E = torch.where(ok[:, None, None], E, r.model)
+            inl = torch.where(ok[:, None], inl, r.inlier_mask)
+            n_sel = torch.where(ok, n_sel, r.n_inliers)
+        thr = th_sq.to(dt).expand(batch)
+        degen_flag = hres.is_rotation_only & ok
     else:
         if cfg.auto_th:
             # AutoThEpi (poselib-test --autoTH; pose_estim.cpp:82-300): the
@@ -368,8 +392,7 @@ def estimate_pose(
                 x1, x2, maskf, quality, cfg.robust, threshold_sq=th_sq,
                 min_threshold=MIN_PIX_TH / f_mean,
                 max_threshold=MAX_PIX_TH / f_mean, uniforms=uniforms,
-                degen_uniforms=degen_uniforms, generator=generator,
-                tables=tables)
+                degen_uniforms=degen_uniforms, tables=tables)
             res, degen = ath.result, ath.degen
         else:
             # SPRT-init parity (pose_estim.cpp:1814-1940): the
@@ -380,8 +403,7 @@ def estimate_pose(
             res, degen = robust.estimate_essential_robust(
                 x1, x2, maskf, quality, cfg.robust, threshold_sq=th_sq,
                 prior_inlier_ratio=prior, uniforms=uniforms,
-                degen_uniforms=degen_uniforms, generator=generator,
-                tables=tables)
+                degen_uniforms=degen_uniforms, tables=tables)
         E, inl, n_sel, thr = (res.model, res.inlier_mask, res.n_inliers,
                               res.threshold)
         counters = (res.n_models_generated, res.n_models_rejected,
@@ -424,7 +446,7 @@ def estimate_pose(
             huber_delta=cfg.ba.huber_delta / f_mean)
         R, t, X = bres.R, bres.t, bres.points
         E = geo.essential_from_rt(R, t)
-        inl = (geo.sampson_error(E, x1, x2) < thr) & maskb
+        inl = (geo.sampson_error(E, x1, x2) < thr[:, None]) & maskb
 
     n_inl = torch.sum(inl, dim=-1)
     return PoseResult(
@@ -518,19 +540,21 @@ class StereoPipeline:
     def run_batch(self, imgs1, imgs2, K1, K2, dist1, dist2,
                   generator: torch.Generator | None = None,
                   uniforms: torch.Tensor | None = None,
-                  degen_uniforms: torch.Tensor | None = None) -> tuple:
+                  degen_uniforms: torch.Tensor | None = None,
+                  plane_uniforms: torch.Tensor | None = None) -> tuple:
         """Batched pairs: imgs1, imgs2 (P, H, W) with shared calibration ->
         (Correspondences, PoseResult), each with a leading pair axis P.
 
-        Pair i equals ``run`` on pair i with pair i's streams: uniforms
-        (P, max_batches, B, k) and degen_uniforms (P, 1, min(B, 64), 4)
-        (``estimate_pose``), else drawn from `generator` pair by pair as P
-        ``run`` calls draw them. The FAST rows score all 2P images in one
-        call of the fused kernel; descriptors, matching and the match
-        filters run pair by pair; the pose stage runs once over the pair
-        axis (the default branch: AutoTh, Halign, BA and the KNEIP refine
-        raise NotImplementedError). The stages are charged to the timer under
-        ``run``'s four names.
+        Pair i equals ``run`` on pair i with pair i's streams, each of
+        ``estimate_pose``'s shapes with a leading P (for the default
+        branch uniforms (P, max_batches, B, k) and degen_uniforms (P, 1,
+        min(B, 64), 4); AutoTh's rounds, Halign's plane_uniforms), else
+        drawn from `generator` pair by pair as P ``run`` calls draw them.
+        The FAST rows score all 2P images in one call of the fused kernel;
+        descriptors, matching and the match filters run pair by pair; the
+        pose stage runs once over the pair axis, for every PoseConfig
+        branch. The stages are charged to the timer under ``run``'s four
+        names.
         """
         imgs1, imgs2 = self._to(imgs1), self._to(imgs2)
         if imgs1.ndim != 3 or imgs1.shape != imgs2.shape or not len(imgs1):
@@ -538,10 +562,9 @@ class StereoPipeline:
                 f"run_batch: imgs1 {tuple(imgs1.shape)} and imgs2 "
                 f"{tuple(imgs2.shape)} must both be (P, H, W), P >= 1")
         P = imgs1.shape[0]
-        # refuse an unported branch or a wrong stream before any work
-        _refuse_unported_pair_branches(self.pose_cfg)
-        _check_shapes("run_batch", _stream_shapes(self.pose_cfg, P, uniforms,
-                                                  degen_uniforms))
+        # refuse a wrong stream before any work
+        _stream_shapes("run_batch", self.pose_cfg, P, uniforms,
+                       degen_uniforms, plane_uniforms)
         binary = features.is_binary_descriptor(self.desc_cfg.kind)
         bands = features.detector_bands(self.det_cfg)
         imgs = torch.cat([imgs1, imgs2])
@@ -561,5 +584,6 @@ class StereoPipeline:
                                                       desc[P:])])
             h["outputs"] = corr
         pose = self._pose(corr, K1, K2, dist1, dist2, generator,
-                          uniforms=uniforms, degen_uniforms=degen_uniforms)
+                          uniforms=uniforms, degen_uniforms=degen_uniforms,
+                          plane_uniforms=plane_uniforms)
         return corr, pose

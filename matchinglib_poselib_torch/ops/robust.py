@@ -222,6 +222,7 @@ def ransac(
     prior_inlier_ratio=None,
     uniforms: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
+    active: torch.Tensor | None = None,
 ) -> RobustResult:
     """Batched robust estimation of one model per correspondence set.
 
@@ -230,7 +231,9 @@ def ransac(
     (PROSAC order; None = no PROSAC); threshold_sq and prior_inlier_ratio:
     shared or per pair. uniforms: (..., max_batches, B, k) sample
     uniforms, else drawn from `generator`. Every pair runs
-    until it meets its stop rule; the loop ends when all have. LMEDS
+    until it meets its stop rule; the loop ends when all have. active:
+    (...) bool, the pairs whose result the caller keeps; the others keep
+    no batch and hold the loop for none (their model is the identity). LMEDS
     (``cfg.estimator``) keeps the model of least median residual over all
     max_batches (no threshold inflation, no stop, no host read), and its
     inlier band (2.5 * 1.4826 * sqrt(median))^2 becomes the result's
@@ -273,6 +276,8 @@ def ransac(
     n_batches = torch.zeros(batch, dtype=torch.int64, device=dev)
     # pairs still sampling; one that has stopped keeps its state
     live = torch.ones(batch, dtype=torch.bool, device=dev)
+    if active is not None:
+        live = live & active
     for i in range(cfg.max_batches):
         # zero-inlier threshold inflation (USAC.h:355-364)
         if cfg.inflate_th_on_failure and not lmeds:
@@ -381,12 +386,13 @@ def _inv_sim(T: torch.Tensor) -> torch.Tensor:
 
 
 def lo_refine_essential(result: RobustResult, x1, x2, mask,
-                        iterations: int = 4) -> RobustResult:
+                        iterations: int = 4,
+                        active: torch.Tensor | None = None) -> RobustResult:
     """Iterative pseudo-Huber-weighted 8pt re-fit on the current inliers
     (USAC.h locallyOptimizeSolution); keeps a re-fit only if the inlier
     count does not drop, and stops once a re-fit reproduces the model
     (per pair with a pair axis: a pair that has stopped keeps its model,
-    mask and count)."""
+    mask and count; a pair not `active` never starts)."""
     th = result.threshold
     batch = x1.shape[:-2]
     maskb = mask.to(torch.bool)
@@ -401,6 +407,8 @@ def lo_refine_essential(result: RobustResult, x1, x2, mask,
     ns_prev = (_inv_sim(T2).transpose(-1, -2) @ result.model
                @ _inv_sim(T1)).reshape(batch + (9,))
     live = torch.ones(batch, dtype=torch.bool, device=x1.device)
+    if active is not None:
+        live = live & active
     b2 = torch.clamp(th, min=1e-20)[..., None]
     for it in range(iterations):
         err = geo.sampson_error(model, x1, x2)
@@ -543,11 +551,13 @@ def estimate_essential_robust(
     degen_uniforms: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
     tables: solvers.SolverTables | None = None,
+    active: torch.Tensor | None = None,
 ):
     """Robust E: RANSAC/PROSAC batches + LO refinement + support-guarded
     projection + degeneracy check (estimateEssentialMat,
     pose_estim.cpp:857,1737). Returns (RobustResult, DegeneracyResult |
-    None). Takes an optional leading pair axis (``ransac``).
+    None). Takes an optional leading pair axis (``ransac``); active: the
+    pairs whose result the caller keeps (the others' loops do not run).
 
     uniforms: (..., max_batches, B, k) for the E batches; degen_uniforms:
     (..., 1, min(B, 64), 4) for the degeneracy H batch (the JAX package's
@@ -572,10 +582,11 @@ def estimate_essential_robust(
         family = essential_family(cfg.solver, tables)
     res = ransac(family, x1, x2, mask, quality, cfg, threshold_sq,
                  prior_inlier_ratio=prior_inlier_ratio, uniforms=uniforms,
-                 generator=generator)
+                 generator=generator, active=active)
     if cfg.lo_refine:
         res0 = res
-        res = lo_refine_essential(res, x1, x2, mask, cfg.lo_inner_iterations)
+        res = lo_refine_essential(res, x1, x2, mask, cfg.lo_inner_iterations,
+                                  active=active)
         # keep the LO outcome only if its PROJECTED support does not fall
         # below the pre-LO support (the raw-DLT chain can drift toward a
         # fundamental-matrix solution), else restore the ransac winner
@@ -627,9 +638,9 @@ def estimate_essential_autoth(
     min_threshold,
     max_threshold,
     rounds: int = AUTOTH_ROUNDS,
-    uniforms: torch.Tensor | None = None,
+    *,
+    uniforms: torch.Tensor,
     degen_uniforms: torch.Tensor | None = None,
-    generator: torch.Generator | None = None,
     tables: solvers.SolverTables | None = None,
 ) -> AutoThResult:
     """Robust E with automatic threshold adaptation (AutoThEpi,
@@ -643,18 +654,25 @@ def estimate_essential_autoth(
     estimate (>= 5 th and >= 4 PIX_MIN_GOOD_TH) doubles th instead (or
     resets it to the minimum past half the maximum), clamped to
     [min_threshold, max_threshold]. The round where th moves by < 10% or
-    the inlier ratio reaches 0.67 latches the result; the JAX package's
-    later rounds change nothing, so the loop stops there (one host read
-    per round).
+    the inlier ratio reaches 0.67 latches the pair's result, threshold
+    and round count; the JAX package's later rounds change nothing for
+    it, so a latched pair's robust loops do not run again and the rounds
+    end once every pair has latched (one host read per round).
 
-    uniforms: (rounds, max_batches, B, k), round r's E batches (the JAX
-    package's r-th ``split`` of the key); degen_uniforms: (1, min(B, 64),
-    4) for the degeneracy check on the latched result (its
-    ``fold_in(key, 777)`` of the key left after all rounds). Either, when
-    None, comes from `generator`: the rounds' streams first, in order.
+    Takes an optional leading pair axis on x1, x2 (P, N, 2), mask and
+    quality (P, N), and the thresholds (P,) or shared; every field of the
+    result, ``n_rounds`` included, is then per pair.
+
+    uniforms: (..., rounds, max_batches, B, k), round r's E batches (the
+    JAX package's r-th ``split`` of the key); degen_uniforms: (..., 1,
+    min(B, 64), 4) for the degeneracy check on the latched result (its
+    ``fold_in(key, 777)`` of the key left after all rounds), required
+    with ``cfg.check_degeneracy`` (ValueError).
     """
     dt, dev = x1.dtype, x1.device
+    batch = x1.shape[:-2]
     th = torch.sqrt(torch.as_tensor(threshold_sq, dtype=dt, device=dev))
+    th = th.expand(batch)
     min_th = torch.as_tensor(min_threshold, dtype=dt, device=dev)
     max_th = torch.as_tensor(max_threshold, dtype=dt, device=dev)
     # the 5 px trim ceiling and the 4 PIX_MIN_GOOD_TH runaway floor in
@@ -662,21 +680,25 @@ def estimate_essential_autoth(
     px_unit = min_th / MIN_PIX_TH
     trim_ceiling = 5.0 * px_unit
     runaway_floor = 4.0 * PIX_MIN_GOOD_TH * px_unit
-    if uniforms is None:
-        uniforms = draw_uniforms(
-            generator, (rounds, *sample_shapes(cfg)[0]), dev)
+    if cfg.check_degeneracy and degen_uniforms is None:
+        raise ValueError("estimate_essential_autoth: check_degeneracy "
+                         "needs degen_uniforms")
     round_cfg = dataclasses.replace(cfg, check_degeneracy=False)
 
     maskb = mask.to(torch.bool)
+    frozen = torch.zeros(batch, dtype=torch.bool, device=dev)
+    n_rounds = torch.zeros(batch, dtype=torch.int32, device=dev)
+    best = None
     for r in range(rounds):
         res, _ = estimate_essential_robust(
             x1, x2, mask, quality, round_cfg, threshold_sq=th * th,
-            uniforms=uniforms[r], tables=tables)
+            uniforms=uniforms[..., r, :, :, :], tables=tables,
+            active=~frozen)
         err = torch.sqrt(torch.clamp(geo.sampson_error(res.model, x1, x2),
                                      min=0.0))
         max_inl_dist = torch.minimum(4.0 * th, trim_ceiling)
-        med, mean, std, mad = geo.masked_stats(err,
-                                               maskb & (err < max_inl_dist))
+        med, mean, std, mad = geo.masked_stats(
+            err, maskb & (err < max_inl_dist[..., None]))
         ratio = mean / torch.clamp(med, min=1e-12)
         th_tmp = torch.where((ratio > 2.0) | (ratio < 0.5),
                              med + 3.0 * (1.4826 * mad), mean + 3.0 * std)
@@ -684,18 +706,23 @@ def estimate_essential_autoth(
         fallback = torch.where(th < 0.5 * max_th, 2.0 * th, min_th)
         th_new = torch.clamp(torch.where(sane, th_tmp, fallback), min_th,
                              max_th)
+        # a latched pair keeps its result, threshold and round count
+        best = res if best is None else RobustResult(*(
+            torch.where(frozen.reshape(frozen.shape + (1,) * (
+                old.ndim - frozen.ndim)), old, new)
+            for old, new in zip(best, res)))
+        n_rounds = torch.where(frozen, n_rounds, r + 1)
         moved = (th / torch.clamp(th_new, min=1e-12) < 0.9) | (
             th_new / torch.clamp(th, min=1e-12) < 0.9)
         converged = ~moved | (res.inlier_ratio >= 0.67)
-        th = th_new
-        if HostSyncs.read(converged, "auto_th", r):
+        th = torch.where(frozen, th, th_new)
+        frozen = frozen | converged
+        if HostSyncs.read(torch.all(frozen), "auto_th", r):
             break
-    n_rounds = torch.full((), r + 1, dtype=torch.int32, device=dev)
 
     degen = None
     if cfg.check_degeneracy:
-        degen = analyze_degeneracy(res, x1, x2, mask, cfg,
-                                   uniforms=degen_uniforms,
-                                   generator=generator)
-    return AutoThResult(result=res, degen=degen, threshold=th,
+        degen = analyze_degeneracy(best, x1, x2, mask, cfg,
+                                   uniforms=degen_uniforms)
+    return AutoThResult(result=best, degen=degen, threshold=th,
                         n_rounds=n_rounds)

@@ -168,15 +168,19 @@ def solve_small_lanes(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return X.reshape(batch + (n, m))
 
 
-def nullspace_from_ata(A: torch.Tensor, k: int) -> torch.Tensor:
+def nullspace_from_ata(A: torch.Tensor, k: int,
+                       pairs: bool = False) -> torch.Tensor:
     """k smallest-eigenvalue eigenvectors of A^T A -> (..., N, k).
 
-    The unbatched k = 1 case uses the closed-form inverse iteration
-    (smalllinalg.min_eigvec_spd), as in the JAX package.
+    The k = 1 case of one system uses the closed-form inverse iteration
+    (smalllinalg.min_eigvec_spd), as in the JAX package; so does one
+    system per pair (`pairs`: the leading dims are a pair axis, which the
+    JAX package's ``vmap`` hides from its code). Batches of samples keep
+    eigh, as there.
     """
     AtA = A.transpose(-1, -2) @ A
-    if k == 1 and AtA.ndim == 2:
-        return smalllinalg.min_eigvec_spd(AtA)[:, None]
+    if k == 1 and (AtA.ndim == 2 or pairs):
+        return smalllinalg.min_eigvec_spd(AtA)[..., None]
     _, vecs = torch.linalg.eigh(AtA)
     return vecs[..., :, :k]
 
@@ -756,10 +760,12 @@ def solve_5pt(x1: torch.Tensor, x2: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def solve_8pt(x1, x2, mask=None, weights=None, essential: bool = True):
+def solve_8pt(x1, x2, mask=None, weights=None, essential: bool = True,
+              pairs: bool = False):
     """Batched (weighted) Hartley-normalized 8-point solver on N >= 8
     correspondences; projected to the essential manifold (or to rank 2
-    with essential=False). Returns (E, valid)."""
+    with essential=False). `pairs`: the leading dims are a pair axis
+    (``nullspace_from_ata``). Returns (E, valid)."""
     if mask is None:
         mask = torch.ones(x1.shape[:-1], dtype=x1.dtype, device=x1.device)
     w = mask.to(x1.dtype)
@@ -768,7 +774,7 @@ def solve_8pt(x1, x2, mask=None, weights=None, essential: bool = True):
     x1n, T1 = normalize_points(x1, mask)
     x2n, T2 = normalize_points(x2, mask)
     A = epipolar_rows(x1n, x2n) * w[..., None]
-    ns = nullspace_from_ata(A, 1)[..., 0]
+    ns = nullspace_from_ata(A, 1, pairs)[..., 0]
     En = ns.reshape(ns.shape[:-1] + (3, 3))
     E = T2.transpose(-1, -2) @ En @ T1
     U, s, Vt = torch.linalg.svd(E)
@@ -803,10 +809,11 @@ def homography_rows(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     return rows.reshape(rows.shape[:-3] + (2 * rows.shape[-3], 9))
 
 
-def solve_homography(x1, x2, mask=None, weights=None):
+def solve_homography(x1, x2, mask=None, weights=None, pairs: bool = False):
     """Batched (weighted) Hartley-normalized homography DLT on N >= 4
-    correspondences; minimal samples take the QR nullspace. Returns
-    (H, valid) with H[2, 2] = 1 where possible."""
+    correspondences; minimal samples take the QR nullspace. `pairs`: the
+    leading dims are a pair axis (``nullspace_from_ata``). Returns (H,
+    valid) with H[2, 2] = 1 where possible."""
     if mask is None:
         mask = torch.ones(x1.shape[:-1], dtype=x1.dtype, device=x1.device)
     w = mask.to(x1.dtype)
@@ -819,7 +826,7 @@ def solve_homography(x1, x2, mask=None, weights=None):
     if A.shape[-2] == A.shape[-1] - 1:
         ns = nullspace_qr(A)[..., 0]
     else:
-        ns = nullspace_from_ata(A, 1)[..., 0]
+        ns = nullspace_from_ata(A, 1, pairs)[..., 0]
     Hn = ns.reshape(ns.shape[:-1] + (3, 3))
     H = torch.linalg.solve(T2, Hn @ T1)
     scale = H[..., 2, 2]

@@ -130,6 +130,33 @@ def jax_pair_streams(key, P, robust):
             torch.stack([jax_degen_uniforms(kk, B) for kk in keys]))
 
 
+def jax_pose_streams(key, cfg):
+    """``estimate_pose``'s streams for one JAX key under a PoseConfig of
+    either package, as the JAX ``estimate_pose`` samples them: Halign's
+    planes and its fallback's ``key_fb`` (``jax_halign_uniforms``),
+    AutoTh's rounds and degeneracy stream (``jax_autoth_uniforms``), or
+    the default branch's E and degeneracy streams. -> dict of the port's
+    stream arguments."""
+    (nb, B, k), _ = sample_shapes(cfg.robust)
+    if cfg.use_halign:
+        planes, fb = jax_halign_uniforms(key, cfg.halign.max_planes, nb, B,
+                                         k)
+        return dict(plane_uniforms=planes, uniforms=fb)
+    if cfg.auto_th:
+        u, d = jax_autoth_uniforms(key, 3, nb, B, k)
+        return dict(uniforms=u, degen_uniforms=d)
+    return dict(uniforms=jax_uniforms(key, nb, B, k),
+                degen_uniforms=jax_degen_uniforms(key, B))
+
+
+def jax_pair_pose_streams(key, P, cfg):
+    """A batch's streams for any PoseConfig branch as the JAX package's
+    ``run_batch`` draws them: pair i's (``jax_pose_streams``) from the
+    i-th key of split(key, P), stacked on a leading P."""
+    per = [jax_pose_streams(kk, cfg) for kk in jax.random.split(key, P)]
+    return {name: torch.stack([p[name] for p in per]) for name in per[0]}
+
+
 # the robust engine's counters of a PoseResult
 COUNTERS = ("n_models_generated", "n_models_rejected", "n_points_verified",
             "n_lo_refinements")
@@ -150,7 +177,8 @@ def assert_pair_equal(corr, pose, c, p, i):
 def assert_pose_equal(pose, p, i):
     """Pair i of a batched PoseResult against a single pair's: masks,
     flags and counters exact, R, t and E within 1e-5."""
-    for name in ("inlier_mask", "valid3d", "is_degenerate", *COUNTERS):
+    for name in ("inlier_mask", "valid3d", "is_degenerate",
+                 "halign_error_code", *COUNTERS):
         assert torch.equal(getattr(pose, name)[i], getattr(p, name)), name
     for name in ("R", "t", "E"):
         diff = (getattr(pose, name)[i] - getattr(p, name)).abs().max()
@@ -216,3 +244,88 @@ def aligned_fraction(perm, jmask, tmask):
     both = int((perm >= 0).sum())
     union = int(jmask.sum() + tmask.sum()) - both
     return both / max(union, 1), union - both
+
+
+# ---------------------------------------------------------------------------
+# the pose branches with a pair axis (test_torch_batch_*.py)
+# ---------------------------------------------------------------------------
+
+# bars of a pair against the JAX package's vmap: inlier slots, rotation
+# (chordal) and translation direction in deg; the Kneip polish's energy is
+# flat in f32 at its minimum (test_torch_eigensolver.py)
+BRANCH_AGREE = 0.995
+BRANCH_DEG = (0.01, 0.05)
+KNEIP_DEG = (0.1, 0.25)
+
+
+def pose_pairs(specs):
+    """Pixel correspondences of len(specs) synthetic pairs, each
+    ``test_pose_branches._pixel_correspondences(**spec)`` (K, no
+    distortion), stacked: (R (P, 3, 3), t (P, 3), pts1, pts2, mask,
+    quality) as numpy arrays."""
+    from test_pose_branches import _pixel_correspondences
+
+    out = [_pixel_correspondences(**s) for s in specs]
+    return tuple(np.stack([o[k] for o in out]) for k in range(6))
+
+
+def jax_vmap_pose(cfg, K, dist, pts1, pts2, mask, quality, key):
+    """``jax.vmap`` of the JAX package's ``estimate_pose`` over the pairs,
+    pair i under the i-th key of split(key, P), as its ``run_batch``
+    calls it."""
+    from matchinglib_poselib_tpu.models import pipeline as jp
+
+    Kj, dj = jnp.asarray(K), jnp.asarray(dist)
+    keys = jax.random.split(key, mask.shape[0])
+    return jax.vmap(lambda a, b, c, d, kk: jp.estimate_pose(
+        a, b, c, d, Kj, Kj, dj, dj, cfg, kk))(
+            *(jnp.asarray(x) for x in (pts1, pts2, mask, quality)), keys)
+
+
+def check_pose_vs_jax(tpose, jpose, deg=BRANCH_DEG):
+    """Every pair of a batched PoseResult against the JAX package's: inlier
+    masks on >= BRANCH_AGREE of the slots, R and t within `deg`, the
+    Halign error code and the degeneracy flag equal."""
+    for i in range(tpose.R.shape[0]):
+        agree = (n(tpose.inlier_mask[i])
+                 == np.asarray(jpose.inlier_mask[i])).mean()
+        assert agree >= BRANCH_AGREE, (i, agree)
+        assert rot_chordal_deg(np.asarray(jpose.R[i]),
+                               n(tpose.R[i])) < deg[0], i
+        assert dir_angle_deg(np.asarray(jpose.t[i]), n(tpose.t[i])) < deg[1]
+        assert int(tpose.halign_error_code[i]) == int(
+            jpose.halign_error_code[i]), i
+        assert bool(tpose.is_degenerate[i]) == bool(jpose.is_degenerate[i])
+
+
+def check_batch_vs_singles(estimate, pts, cfg, streams):
+    """The batched ``estimate_pose`` (``estimate(pts..., cfg, **kw)``)
+    against one call per pair, field by field (``assert_pose_equal``),
+    with explicit streams (``streams``: dict) or with one seeded generator
+    shared by the single calls (``streams`` None); each run of each
+    data-dependent loop reads the host as often as its slowest pair
+    alone. Returns the batched PoseResult."""
+    from matchinglib_poselib_torch.utils.profiling import (
+        HostSyncs, loop_iterations,
+    )
+
+    P = pts[2].shape[0]
+    if streams is None:
+        kw = dict(generator=torch.Generator().manual_seed(5))
+        gen = torch.Generator().manual_seed(5)
+        per = [dict(generator=gen) for _ in range(P)]
+    else:
+        kw = streams
+        per = [{k: v[i] for k, v in streams.items()} for i in range(P)]
+    with HostSyncs.traced() as log:
+        pose = estimate(*pts, cfg, **kw)
+    alone = []
+    for i in range(P):
+        with HostSyncs.traced() as log_i:
+            p = estimate(*(x[i] for x in pts), cfg, **per[i])
+        assert_pose_equal(pose, p, i)
+        alone.append(loop_iterations(log_i))
+    runs = {k for a in alone for k in a}
+    assert loop_iterations(log) == {k: max(a.get(k, 0) for a in alone)
+                                    for k in runs}
+    return pose

@@ -28,8 +28,8 @@ own single-pair calls.
   per-pair calls of the port: masks and counters equal, R and t within
   1e-5; each run of each data-dependent loop reads the host as often as
   its slowest pair alone.
-- (e) the unported branches, inconsistent shapes and a card that is not
-  there raise.
+- (e) inconsistent shapes, a pair-axis stream of the wrong shape (before
+  any work) and a card that is not there raise.
 - (f) the closed-form Jacobian of the LM polish against
   ``torch.func.jacfwd`` in float64.
 """
@@ -380,22 +380,48 @@ def test_pose_options_batched_match_per_pair(option):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("change, name", [
-    (dict(auto_th=True), "AutoTh"),
-    (dict(use_halign=True), "Halign"),
-    (dict(ba=tcfg.BAConfig(enabled=True)), "BA"),
-    (dict(refine=tcfg.RefinementConfig(solver=tcfg.MinimalSolver.KNEIP)),
-     "KNEIP"),
-])
-def test_unported_pose_branches_raise_in_run_batch(change, name):
+# (branch changes, stream, its wrong shape for P pairs): AutoTh's and
+# Halign's streams with another branch's shape, or another P; a stream
+# the branch does not take, at any shape
+BAD_STREAMS = {
+    "default_planes": (dict(), "plane_uniforms",
+                       lambda P, e, d, pl: (P, *pl)),
+    "halign_degen": (dict(use_halign=True), "degen_uniforms",
+                     lambda P, e, d, pl: (P, *d)),
+    "auto_th_uniforms": (dict(auto_th=True), "uniforms",
+                         lambda P, e, d, pl: (P, *e)),
+    "auto_th_degen": (dict(auto_th=True), "degen_uniforms",
+                      lambda P, e, d, pl: (P + 1, *d)),
+    "halign_planes": (dict(use_halign=True), "plane_uniforms",
+                      lambda P, e, d, pl: (P, *pl[1:])),
+    "halign_uniforms": (dict(use_halign=True), "uniforms",
+                        lambda P, e, d, pl: (P, 3, *e)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_STREAMS))
+def test_pair_axis_stream_shapes_raise(case):
+    """A new pair-axis stream of the wrong shape, or a stream the branch
+    does not take, raises ValueError in estimate_pose and in run_batch
+    before any work: no host read, no stage charged."""
+    change, stream, shape = BAD_STREAMS[case]
     imgs1, imgs2, K, _, _ = _scenes(SEEDS[:2], 64, 128)
-    pipe = _pipe(dataclasses.replace(tcfg.PoseConfig(), **change))
-    with pytest.raises(NotImplementedError, match=name):
-        pipe.run_batch(imgs1, imgs2, K, K, np.zeros(5), np.zeros(5))
+    pipe = _pipe(dataclasses.replace(_tcfg(), **change))
+    cfg = pipe.pose_cfg
+    e_shape, d_shape = trob.sample_shapes(cfg.robust)
+    pl_shape = (cfg.halign.max_planes, *e_shape[:2], 4)
     p1, p2, m, q = (torch.from_numpy(a) for a in _synthetic())
-    with pytest.raises(NotImplementedError, match=name):
-        tp.estimate_pose(p1, p2, m, q, t(KS), t(KS), torch.zeros(5),
-                         torch.zeros(5), pipe.pose_cfg)
+    P = m.shape[0]
+    with HostSyncs.traced() as log:
+        with pytest.raises(ValueError, match=stream):
+            tp.estimate_pose(p1, p2, m, q, t(KS), t(KS), torch.zeros(5),
+                             torch.zeros(5), cfg, **{stream: torch.rand(
+                                 shape(P, e_shape, d_shape, pl_shape))})
+        with pytest.raises(ValueError, match=stream):
+            pipe.run_batch(imgs1, imgs2, K, K, np.zeros(5), np.zeros(5),
+                           **{stream: torch.rand(
+                               shape(2, e_shape, d_shape, pl_shape))})
+    assert log == [] and pipe.timer.times_ms == {}
 
 
 def test_inconsistent_shapes_raise():
