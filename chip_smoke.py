@@ -121,6 +121,35 @@ Phases (any failure exits non-zero):
      and with ``--stereoRef`` (seeded streams): the CSV header, the states
      and each row within 0.1 / 0.5 deg of the CPU's; ms per frame by stage
      and host syncs per frame for each CLI.
+  9. the rest of the front end (``frontend_kernel_checks``,
+     ``frontend_phase``): K2a bit-exact against its plain version at 2048 x
+     2048 on the scene's 512-bit ring (BRISK) descriptors, xy_mode 0, 1
+     and 2 with ~10% invalid columns and planted ties, at ``KNN2_RAGGED``
+     x 2, 4 and 16 words, on the extreme pairs of the 512-bit key (an
+     all-zero row against an all-ones column: distance 512 exact), 17
+     words refused; K2b at ``KNN2_L2_RAGGED`` x D = 200, 120, 80, 48; K1
+     against its zero-padded plain version at every pixel of each pyramid
+     level of the scene (levels 2-4), radius 0 and 3; then
+     every row of ``frontend_rows`` (HARRIS, GFTT, STAR, MSD, MSER and
+     pyramid ORB / BRISK at 4 levels with ORB; KAZE/KAZE; AKAZE/AKAZE;
+     FAST t=12 with BRISK, FREAK, RIFF, BOLD, LATCH, BGM, BINBOOST_64 /
+     _128 / _256, LBGM, VGG_120 / _80 / _64 / _48, DAISY) through
+     ``StereoPipeline.run`` on the scene at 2048 slots, GMBSOF, 96 x 12
+     hypotheses and seeded explicit streams: one warm run, launches as
+     ``frontend_expected`` (K1 2, once per level and image on a pyramid,
+     0 for the other detectors; K2a 2 for a binary descriptor but BOLD,
+     K2b 2 for a float one) and no call of the plain ``fast_score``, the
+     pose within the accuracy bars, timed
+     runs with the stage split; the port's CPU path on the same pair for
+     every detector row and ``FRONTEND_CPU_DESCRIPTORS`` (keypoints and
+     match slots aligned by position, >= 99%); one profiled step of
+     KAZE/KAZE and FAST/BRISK; ``run_batch`` on frames 1-2 at AKAZE/AKAZE
+     and FAST/BOLD, each pair equal to its own ``run`` (slots 100%,
+     inlier masks equal, 0.01 / 0.05 deg); ``matchinglib-test --f_detect
+     AKAZE --d_extr AKAZE`` on phase 8's frames, each stored
+     ``matches_XXXX.npz`` equal to ``get_correspondences`` on the card;
+     a ``frontend`` line per row with the card's name and power limit,
+     and the phase's wall seconds.
 
 Prints a JSON ``kernels`` line, one JSON ``step`` line per path, the
 card's name and power limit, and as its last line
@@ -575,14 +604,15 @@ def check_knn2(torch, knn2, cases):
 KNN2_RAGGED = ((1, 5), (17, 70), (70, 17), (2047, 2049))
 
 
-def knn2_ragged_cases(torch, rng, dev):
-    """K2a cases at the ragged shapes, xy_mode 0, 1 and 2: random words,
-    ~10% invalid columns, planted ties where n2 allows, and the last
-    quarter of the rows (at least one) predicted far outside every gate;
-    plus, at 17 x 70, every column invalid. Returns [(label, xy_mode,
-    args, rows that must come out exactly (1e9, 1e9, -1))]."""
+def knn2_ragged_cases(torch, rng, dev, width=8):
+    """K2a cases at the ragged shapes, xy_mode 0, 1 and 2: random words
+    (`width` per descriptor), ~10% invalid columns, planted ties where n2
+    allows, and the last quarter of the rows (at least one) predicted far
+    outside every gate; plus, at 17 x 70, every column invalid. Returns
+    [(label, xy_mode, args, rows that must come out exactly (1e9, 1e9,
+    -1))]."""
     def words(n):
-        return torch.from_numpy(rng.integers(-2**31, 2**31, (n, 8),
+        return torch.from_numpy(rng.integers(-2**31, 2**31, (n, width),
                                              dtype=np.int64)
                                 .astype(np.int32)).to(dev)
 
@@ -609,9 +639,51 @@ def knn2_ragged_cases(torch, rng, dev):
             args = (d1, d2, valid2) + ((pred, rad2, pts2) if mode else ())
             faulted = (torch.arange(n1, device=dev) if all_invalid
                        else gated if mode else gated[:0])
-            label = (f"{n1}x{n2}" + (" all invalid" if all_invalid else ""))
+            label = (f"{n1}x{n2}" + (f"x{width}w" if width != 8 else "")
+                     + (" all invalid" if all_invalid else ""))
             cases.append((label, mode, args, faulted))
     return cases
+
+
+def knn2_extreme_cases(torch, dev, width=16):
+    """K2a at the ends of the key's distance field (0..2 * 32 W): an
+    all-zero query against an all-ones candidate (the field's largest
+    value), an all-ones query against an all-zero candidate, two equal
+    extreme candidates (a tie at the largest distance) and an invalid
+    nearer one. Returns [(label, args, (d_best, d_second, idx) exactly)]."""
+    bits = 32 * width
+
+    def rows(*vals):
+        return torch.tensor([[v] * width for v in vals], dtype=torch.int32,
+                            device=dev)
+
+    def valid(*v):
+        return torch.tensor(v, dtype=torch.bool, device=dev)
+
+    return [
+        ("zero row vs ones column",
+         (rows(0), rows(0, -1), valid(False, True)), (float(bits), 1e9, 1)),
+        ("ones row vs zero column",
+         (rows(-1), rows(-1, 0), valid(False, True)), (float(bits), 1e9, 1)),
+        ("tie of two ones columns", (rows(0), rows(0, -1, -1),
+                                     valid(False, True, True)),
+         (float(bits), float(bits), 1)),
+    ]
+
+
+def check_knn2_extreme(torch, knn2, cases):
+    """K2a vs plain on the extreme cases, bit-exact, and the exact
+    expected (d_best, d_second, idx) of each."""
+    for label, args, want in cases:
+        got = knn2.knn2(*args)
+        plain = knn2.knn2_plain(*args)
+        for name, g, w in zip(("d_best", "d_second", "idx"), got, plain):
+            if not torch.equal(g, w):
+                raise AssertionError(f"knn2 {label}: {name} differs from "
+                                     "the plain version")
+        vals = (float(got[0][0]), float(got[1][0]), int(got[2][0]))
+        if vals != want:
+            raise AssertionError(f"knn2 {label}: {vals}, expected {want}")
 
 
 def check_knn2_ragged(torch, knn2, cases):
@@ -729,7 +801,7 @@ KNN2_L2_RAGGED = KNN2_RAGGED
 KNN2_L2_DEPTHS = (128, 64, 67)
 
 
-def knn2_l2_ragged_cases(torch, rng, dev):
+def knn2_l2_ragged_cases(torch, rng, dev, depths=KNN2_L2_DEPTHS):
     """K2b cases at the ragged shapes and depths, xy_mode 0, 1 and 2:
     random unit rows, ~10% invalid columns, the last quarter of the rows
     predicted far outside every gate; planted duplicates of a query (two
@@ -737,7 +809,8 @@ def knn2_l2_ragged_cases(torch, rng, dev):
     the first column slice and one pair across the first and the last
     slice; plus, at 17 x 70, every column invalid, or (xy_mode 1 and 2)
     every row gated. Returns [(label, xy_mode, args, planted (queries, low
-    columns), rows that must come out exactly (1e9, 1e9, -1))]."""
+    columns), rows that must come out exactly (1e9, 1e9, -1))]; at each of
+    `depths`."""
     def unit(n, depth):
         x = rng.normal(size=(n, depth)).astype(np.float32)
         return torch.from_numpy(x / np.linalg.norm(x, axis=1, keepdims=True))
@@ -745,7 +818,7 @@ def knn2_l2_ragged_cases(torch, rng, dev):
     cases = []
     shapes = ([(s, None) for s in KNN2_L2_RAGGED]
               + [((17, 70), "invalid"), ((17, 70), "gated")])
-    for depth in KNN2_L2_DEPTHS:
+    for depth in depths:
         for (n1, n2), fault in shapes:
             d1, d2 = unit(n1, depth), unit(n2, depth)
             valid2 = torch.from_numpy(rng.random(n2) > 0.1)
@@ -2272,6 +2345,393 @@ def apps_phase(torch, dev, seed, smi, size=(HEIGHT, WIDTH)):
     return rec, failures
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the rest of the front end
+# ---------------------------------------------------------------------------
+
+FRONTEND_TIMED_RUNS = 3
+FRONTEND_LEVELS, FRONTEND_SCALE = 4, 1.25
+FRONTEND_DESCRIPTORS = ("BRISK", "FREAK", "RIFF", "BOLD", "LATCH", "BGM",
+                        "BINBOOST_64", "BINBOOST_128", "BINBOOST_256",
+                        "LBGM", "VGG_120", "VGG_80", "VGG_64", "VGG_48",
+                        "DAISY")
+# descriptor rows also run on the CPU path: one of each module
+# (descriptors_ext, descriptors_learned) and each K2a width (16, 2, 4;
+# the detector rows give 8 with ORB, AKAZE 16 with MLDB)
+FRONTEND_CPU_DESCRIPTORS = ("BRISK", "BINBOOST_64", "BINBOOST_128")
+FRONTEND_AGREE = 0.99
+FRONTEND_BATCH_ROWS = ("AKAZE/AKAZE", "FAST/BOLD")
+FRONTEND_PROFILED = ("KAZE/KAZE", "FAST/BRISK")
+
+
+def frontend_rows(cfg):
+    """Phase 9's rows: (name, DetectorConfig, DescriptorConfig). The
+    detector rows describe with ORB (KAZE and AKAZE with their own
+    descriptors), the descriptor rows detect with FAST t = 12; 2048 slots,
+    pyramids of 4 levels at 1.25."""
+    fast = dict(kind="FAST", max_keypoints=2048, fast_threshold=12.0)
+    rows = [(f"{k}/ORB", dict(fast, kind=k), "ORB")
+            for k in ("HARRIS", "GFTT", "STAR", "MSD", "MSER")]
+    rows += [(f"{k} pyramid/ORB", dict(fast, kind=k,
+                                       pyramid_levels=FRONTEND_LEVELS,
+                                       pyramid_scale=FRONTEND_SCALE), "ORB")
+             for k in ("ORB", "BRISK")]
+    rows += [(f"{k}/{k}", dict(fast, kind=k), k) for k in ("KAZE", "AKAZE")]
+    rows += [(f"FAST/{d}", fast, d) for d in FRONTEND_DESCRIPTORS]
+    return [(name, cfg.DetectorConfig(**d), cfg.DescriptorConfig(kind=e))
+            for name, d, e in rows]
+
+
+def frontend_expected(features, det, desc, pairs=1):
+    """Kernel launches of `pairs` pairs through ``run`` (pairs=1) or one
+    ``run_batch`` of them: K1 once per image (the single-scale FAST rows
+    once per stack in a batch), once per level and image for a pyramid,
+    never for the other detectors; K2a twice per pair for a binary
+    descriptor but BOLD (its own masked matcher), K2b twice for a float
+    one."""
+    single_fast = det.kind.upper() in ("FAST", "ORB", "BRISK") \
+        and det.pyramid_levels == 1
+    pyramid = det.kind.upper() in ("ORB", "BRISK") and det.pyramid_levels > 1
+    k1 = (2 * pairs * det.pyramid_levels if pyramid
+          else (1 if pairs > 1 else 2) if single_fast else 0)
+    binary = features.is_binary_descriptor(desc.kind)
+    bold = features.is_bold_descriptor(desc.kind)
+    return {"fast_nms": k1,
+            "knn2": 2 * pairs if binary and not bold else 0,
+            "knn2_l2": 0 if binary else 2 * pairs}
+
+
+def align_by_position(xy_a, mask_a, xy_b, mask_b, tol=1e-4):
+    """For every valid slot of a, the slot of b that holds a keypoint at
+    the same position (max-norm distance <= tol), else -1; and the share
+    of the keypoints valid on either side found on the other. A keypoint
+    on an f32 near tie found on one side only moves every later slot;
+    aligned, the rest compare slot for slot."""
+    xy_a, xy_b = (np.asarray(x, np.float64) for x in (xy_a, xy_b))
+    mask_a, mask_b = np.asarray(mask_a, bool), np.asarray(mask_b, bool)
+    d = np.abs(xy_a[:, None, :] - xy_b[None, :, :]).max(-1)
+    d[~mask_a] = np.inf
+    d[:, ~mask_b] = np.inf
+    best = d.argmin(1)
+    perm = np.where(d[np.arange(len(best)), best] <= tol, best, -1)
+    both = int((perm >= 0).sum())
+    union = int(mask_a.sum() + mask_b.sum()) - both
+    return perm, both / max(union, 1)
+
+
+def aligned_agreement(a, b):
+    """Correspondences a and b (either device) compared with keypoints
+    aligned by position: {"keypoints": the smaller of the two images'
+    aligned shares, "matches": on the aligned query slots, the share with
+    the same match mask and, where both keep a match, the partner within
+    1e-4 px}."""
+    shares = []
+    for ka, kb in ((a.kps1, b.kps1), (a.kps2, b.kps2)):
+        perm, share = align_by_position(ka.xy.cpu(), ka.mask.cpu(),
+                                        kb.xy.cpu(), kb.mask.cpu())
+        shares.append(share)
+        if ka is a.kps1:
+            perm1 = perm
+    rows = np.nonzero(perm1 >= 0)[0]
+    cols = perm1[rows]
+    ma, mb = a.mask.cpu().numpy()[rows], b.mask.cpu().numpy()[cols]
+    close = np.abs(a.pts2.cpu().numpy()[rows]
+                   - b.pts2.cpu().numpy()[cols]).max(1) <= 1e-4
+    agree = (ma == mb) & (~ma | close)
+    return {"keypoints": min(shares),
+            "matches": float(agree.mean()) if len(agree) else 0.0}
+
+
+# K2b's depths on phase 9's float rows: DAISY, VGG_120, VGG_80, VGG_48
+# (LBGM's and VGG_64's 64 and RIFF's 128 are phase 3b's)
+FRONTEND_L2_DEPTHS = (200, 120, 80, 48)
+# K2a's descriptor widths on phase 9's binary rows, in words
+FRONTEND_WIDTHS = (2, 4, 16)
+
+
+def frontend_kernel_checks(torch, knn2, features, cfg, det, i1, i2, seed):
+    """Phase 9's kernel checks: K2a bit-exact against its plain version at
+    2048 x 2048 on the scene's 512-bit ring (BRISK) descriptors, xy_mode 0,
+    1 and 2 (``knn2_inputs``), at ``KNN2_RAGGED`` x 2, 4 and 16 words, on
+    the extreme pairs of the 512-bit key (``knn2_extreme_cases``), and 17
+    words refused; K2b at ``KNN2_L2_RAGGED`` x FRONTEND_L2_DEPTHS; K1
+    against its zero-padded plain version (``check_fast_nms``) at every
+    pixel of each pyramid level of the scene, radius 0 and 3. Returns
+    (record with K2a's 16-word times, the cases at 2048 x 2048 by
+    xy_mode)."""
+    rng = np.random.default_rng(seed + 5)
+    dev = i1.device
+    ring = cfg.DescriptorConfig(kind="BRISK")
+    kp1 = features.detect_keypoints(i1, det)
+    kp2 = features.detect_keypoints(i2, det)
+    bands = features.detector_bands(det)
+    r1, _ = features.compute_descriptors(i1, kp1, ring, bands)
+    r2, _ = features.compute_descriptors(i2, kp2, ring, bands)
+    if r1.shape != (det.max_keypoints, 16):
+        raise AssertionError(f"ring descriptors {tuple(r1.shape)}")
+    cases = knn2_inputs(torch, rng, r1, r2, kp1.xy, kp2.xy, dev)
+    rec = {"max_abs_err": check_knn2(torch, knn2, cases)}
+    for width in FRONTEND_WIDTHS:
+        check_knn2_ragged(torch, knn2, knn2_ragged_cases(
+            torch, np.random.default_rng(seed + 6 + width), dev, width))
+    check_knn2_extreme(torch, knn2, knn2_extreme_cases(torch, dev))
+    try:
+        wide = torch.zeros((4, 17), dtype=torch.int32, device=dev)
+        knn2.knn2(wide, wide, torch.ones(4, dtype=torch.bool, device=dev))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("knn2: 17 words on the card did not raise")
+    rec["k2b_max_abs_err"] = check_knn2_l2_ragged(
+        torch, knn2, knn2_l2_ragged_cases(
+            torch, np.random.default_rng(seed + 7), dev,
+            depths=FRONTEND_L2_DEPTHS))
+    # K1 at every pixel of each pyramid level of the scene (ragged shapes
+    # such as 410 x 1114), at ORB's radius 0 and BRISK's 3
+    from matchinglib_poselib_torch.ops import scale_space
+    from matchinglib_poselib_torch.ops.kernels import fast_nms
+
+    H, W = i1.shape
+    rec["k1_levels"] = []
+    for lv in range(1, FRONTEND_LEVELS):
+        s = FRONTEND_SCALE**lv
+        level = scale_space.resize_linear(
+            i1, max(32, int(round(H / s))), max(32, int(round(W / s))))
+        for radius in (0, 3):
+            err, ties = check_fast_nms(
+                torch, fast_nms, level[None].contiguous(),
+                det.fast_threshold / 255.0, radius, min_corners=100)
+            if ties:
+                raise AssertionError(f"fast_nms level {lv} r={radius}: "
+                                     f"{ties} tie mismatches, expected 0")
+            rec["k1_levels"].append([list(level.shape), radius, err])
+    for m in (0, 1):
+        k = functools.partial(knn2.knn2, *cases[m], xy_mode=m)
+        p = functools.partial(knn2.knn2_plain, *cases[m], xy_mode=m)
+        sfx = "" if m == 0 else "_guided"
+        rec["ms" + sfx] = _cuda_ms(torch, k)
+        rec["plain_ms" + sfx] = _cuda_ms(torch, p)
+        rec["device_ms" + sfx] = _device_ms(torch, k)
+        rec["plain_device_ms" + sfx] = _device_ms(torch, p)
+    rec["shape"] = [r1.shape[0], r2.shape[0], 32 * r1.shape[1]]
+    return rec, cases
+
+
+def frontend_row(torch, kernels, pipeline, robust, name, det, desc, match,
+                 pose_cfg, imgs, Kt, dist, truth, seed, timed_runs,
+                 cpu_check, profiled):
+    """One row of phase 9 on the device of `imgs`: counters from 0, one
+    (warm) run with seeded explicit streams, counters read back against
+    `frontend_expected`, the pose error against `truth`; `timed_runs`
+    timed runs (ms, stage split); with `cpu_check` the port's CPU path on
+    the same pair (``aligned_agreement``), with `profiled` one profiled
+    step. Returns (record, failures)."""
+    from matchinglib_poselib_torch.ops import features
+
+    (img1, img2), (i1, i2) = imgs
+    streams = pose_streams(torch, robust, pose_cfg, seed)
+    pipe = pipeline.StereoPipeline(det, desc, match, pose_cfg,
+                                   device=i1.device)
+
+    def run():
+        return pipe.run(i1, i2, Kt, Kt, dist, dist, **streams)
+
+    # the plain FAST score must not run on the card's path (the pyramid
+    # levels go through K1): count its calls during the warm run
+    plain_calls = []
+    plain_score = features.fast_score
+
+    def counted(*a, **kw):
+        plain_calls.append(1)
+        return plain_score(*a, **kw)
+
+    kernels.reset_launch_counts()
+    features.fast_score = counted
+    try:
+        t0 = time.perf_counter()
+        corr, pose = run()
+        _sync(torch, i1)
+        warm_s = time.perf_counter() - t0
+    finally:
+        features.fast_score = plain_score
+    launches = kernels.launch_counts()
+    expected = frontend_expected(features, det, desc)
+    failures = [f"{name}: {k} launched {launches[k]} times (expected {v})"
+                for k, v in expected.items()
+                if i1.is_cuda and launches[k] != v]
+    if i1.is_cuda and plain_calls:
+        failures.append(f"{name}: the plain fast_score ran "
+                        f"{len(plain_calls)} times on the card")
+    rot = _rot_deg(truth[0], pose.R.cpu().numpy())
+    tdir = _dir_deg(truth[1], pose.t.cpu().numpy())
+    rec = {"row": name, "launches": launches, "n_corr": int(corr.n),
+           "n_inliers": int(pose.n_inliers), "rot_err_deg": rot,
+           "t_err_deg": tdir, "warm_s": warm_s}
+    if not bool(torch.isfinite(pose.R).all() and torch.isfinite(pose.t).all()
+                and torch.isfinite(corr.pts2).all()):
+        failures.append(f"{name}: non-finite pose or correspondences")
+    # every row's CPU path meets the bars (chip_probes/frontend_rehearsal.py)
+    if not (rot < MAX_ROT_DEG and tdir < MAX_TANG_DEG):
+        failures.append(f"{name}: pose off the planted pose: rot {rot:.4f} "
+                        f"deg, t {tdir:.4f} deg")
+    if timed_runs:
+        pipe.timer.reset()
+        ms = []
+        for _ in range(timed_runs):
+            _sync(torch, i1)
+            t0 = time.perf_counter()
+            run()
+            _sync(torch, i1)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        rec.update({"runs": timed_runs, "ms_mean": float(np.mean(ms)),
+                    "ms_median": float(np.median(ms)),
+                    "stages_ms": {k: v / timed_runs
+                                  for k, v in pipe.timer.times_ms.items()}})
+    if profiled:
+        busy_ms, ops, wall_ms = _profile_step(torch, run)
+        rec["profiled_run"] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                               "device_ops": ops}
+    if cpu_check:
+        t0 = time.perf_counter()
+        cpu = pipeline.get_correspondences(
+            torch.from_numpy(img1), torch.from_numpy(img2), det, desc, match)
+        rec["cpu_agree"] = aligned_agreement(corr, cpu)
+        rec["cpu_check_s"] = time.perf_counter() - t0
+        if min(rec["cpu_agree"].values()) < FRONTEND_AGREE:
+            failures.append(f"{name}: card vs CPU {rec['cpu_agree']}")
+    return rec, failures
+
+
+def _sync(torch, x):
+    if x.is_cuda:
+        torch.cuda.synchronize()
+
+
+def frontend_batch(torch, kernels, pipeline, robust, name, det, desc, match,
+                   pose_cfg, dev, seed):
+    """``run_batch`` of frames 1-2 of the sequence at a phase-9 row with
+    seeded explicit streams: counters from 0, one batch, counters read
+    back against `frontend_expected`; each pair equal to ``run`` of that
+    pair (``batch_vs_run``). Returns (record, failures)."""
+    from matchinglib_poselib_torch.ops import features
+
+    pairs, K, _, _ = _sequence(seed)
+    pairs = pairs[:2]
+    imgs1 = torch.from_numpy(np.stack([a for a, _ in pairs])).to(dev)
+    imgs2 = torch.from_numpy(np.stack([b for _, b in pairs])).to(dev)
+    Kt = torch.from_numpy(K).to(dev)
+    dist = torch.zeros(5, device=dev)
+    U, D = batch_streams(torch, robust, pose_cfg, seed + 70, 2)
+    U, D = U.to(dev), D.to(dev)
+    pipe = pipeline.StereoPipeline(det, desc, match, pose_cfg, device=dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    corr, pose = pipe.run_batch(imgs1, imgs2, Kt, Kt, dist, dist,
+                                uniforms=U, degen_uniforms=D)
+    _sync(torch, imgs1)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    launches = kernels.launch_counts()
+    expected = frontend_expected(features, det, desc, pairs=2)
+    failures = [f"batch {name}: {k} launched {launches[k]} times (expected "
+                f"{v})" for k, v in expected.items()
+                if dev.type == "cuda" and launches[k] != v]
+    singles = [pipe.run(imgs1[i], imgs2[i], Kt, Kt, dist, dist,
+                        uniforms=U[i], degen_uniforms=D[i]) for i in range(2)]
+    rows, fails = batch_vs_run(torch, corr, pose, singles)
+    failures += [f"batch {name}: {f}" for f in fails]
+    return {"launches": launches, "batch_ms": batch_ms,
+            "batch_vs_run": rows}, failures
+
+
+def frontend_cli(torch, kernels, pipeline, dev, seed):
+    """``matchinglib-test --f_detect AKAZE --d_extr AKAZE`` on phase 8's
+    files (frames 1-APP_FRAMES of the sequence as PNGs): each stored
+    ``matches_XXXX.npz`` equal to ``get_correspondences`` of the decoded
+    pair on `dev`; K1 never, K2a twice per frame. Returns (record,
+    failures)."""
+    import pathlib
+    import tempfile
+
+    from matchinglib_poselib_torch.apps import common, matchinglib_test
+    from matchinglib_poselib_torch.utils import io as tio
+
+    pairs, K, R, t = render_sequence(seed, APP_FRAMES)
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        d = pathlib.Path(tmp) / "imgs"
+        write_stereo_dir(d, pairs, K, R, t)
+        argv = ["--img_path", str(d), "--f_detect", "AKAZE", "--d_extr",
+                "AKAZE"]
+        out = pathlib.Path(tmp) / "match"
+        lines, wall, launches, syncs = _cli(
+            torch, matchinglib_test.main, argv + ["--output_path", str(out)],
+            device=dev)
+        summary = json.loads(lines[-1])
+        det, desc, match = common.matching_configs(
+            matchinglib_test.build_parser().parse_args(argv))
+        for i in range(APP_FRAMES):
+            imgs = [torch.from_numpy(tio.load_image_gray(
+                d / f"{side}_{i:04d}.png")).to(dev)
+                for side in ("left", "right")]
+            corr = pipeline.get_correspondences(*imgs, det, desc, match)
+            m = corr.mask.cpu().numpy()
+            stored = np.load(out / f"matches_{i:04d}.npz")
+            for field in ("pts1", "pts2", "distance"):
+                if not np.array_equal(stored[field],
+                                      getattr(corr, field).cpu().numpy()[m]):
+                    failures.append(f"matchinglib-test AKAZE pair {i}: "
+                                    f"{field} differs from "
+                                    "get_correspondences")
+    if dev.type == "cuda" and (launches["fast_nms"] != 0
+                               or launches["knn2"] != 2 * APP_FRAMES):
+        failures.append(f"matchinglib-test AKAZE: launches {launches}, "
+                        f"expected K1 0 and K2a {2 * APP_FRAMES}")
+    return {"total_matches": summary["total_matches"], "wall_s": wall,
+            "launches": launches, "host_syncs_per_frame": syncs / APP_FRAMES,
+            "ms_per_frame": {k: v / APP_FRAMES
+                             for k, v in summary["stage_ms"].items()}}, \
+        failures
+
+
+def frontend_phase(torch, cfg, match, pose_cfg, imgs, Kt, dist, truth, dev,
+                   seed, smi, timed_runs=FRONTEND_TIMED_RUNS,
+                   cpu_checks=True):
+    """Phase 9: every row of ``frontend_rows`` through ``StereoPipeline.run``
+    on the scene (``frontend_row``; the CPU path for the detector rows and
+    FRONTEND_CPU_DESCRIPTORS), ``run_batch`` at FRONTEND_BATCH_ROWS
+    (``frontend_batch``) and ``matchinglib-test`` at AKAZE/AKAZE
+    (``frontend_cli``). Returns ({row: record}, extra records,
+    failures)."""
+    from matchinglib_poselib_torch.models import pipeline
+    from matchinglib_poselib_torch.ops import kernels, robust
+
+    t_phase = time.perf_counter()
+    rows, failures = {}, []
+    for r_i, (name, det, desc) in enumerate(frontend_rows(cfg)):
+        cpu_check = cpu_checks and (
+            desc.kind in FRONTEND_CPU_DESCRIPTORS
+            or not name.startswith("FAST/"))
+        rec, fails = frontend_row(
+            torch, kernels, pipeline, robust, name, det, desc, match,
+            pose_cfg, imgs, Kt, dist, truth, seed + 300 + r_i, timed_runs,
+            cpu_check, name in FRONTEND_PROFILED)
+        rec["card"] = smi
+        rows[name] = rec
+        failures += fails
+    extra = {"card": smi, "batch": {}}
+    by_name = {name: (det, desc) for name, det, desc in frontend_rows(cfg)}
+    for name in FRONTEND_BATCH_ROWS:
+        extra["batch"][name], fails = frontend_batch(
+            torch, kernels, pipeline, robust, name, *by_name[name], match,
+            pose_cfg, dev, seed)
+        failures += fails
+    extra["matchinglib_test_akaze"], fails = frontend_cli(
+        torch, kernels, pipeline, dev, seed)
+    failures += fails
+    extra["phase_s"] = time.perf_counter() - t_phase
+    return rows, extra, failures
+
+
 def _bound(bytes_moved, time_ops):
     """(bound ms, what bounds it): the larger of the bytes over the HBM
     rate and the operation time."""
@@ -2539,6 +2999,26 @@ def main(argv=None) -> int:
                   "noMatch_poselib-test on eval/fixtures/semireal_fs",
                   apps_rec))
     apps_launches = apps_rec["launches_per_frame"]
+    # 9. the rest of the front end: K2a at 2, 4 and 16 words and K2b at the
+    # float rows' depths, then every detector and descriptor row
+    t_phase9 = time.perf_counter()
+    k2a16, k2a16_cases = frontend_kernel_checks(torch, knn2, features, cfg,
+                                                det, i1, i2, args.seed)
+    fe_rows, fe_extra, fails = frontend_phase(
+        torch, cfg, match, pose_cfg, ((img1, img2), (i1, i2)), Kt, dist,
+        (R_true, t_true), dev, args.seed, smi)
+    failures.extend(f"frontend: {f}" for f in fails)
+    for name, rec in fe_rows.items():
+        print(json.dumps({"frontend": name, **{
+            k: rec.get(k) for k in (
+                "card", "runs", "ms_mean", "ms_median", "stages_ms",
+                "launches", "cpu_agree", "n_corr", "n_inliers",
+                "rot_err_deg", "t_err_deg", "profiled_run")}}))
+    print(json.dumps({"frontend_batch": fe_extra["batch"],
+                      "frontend_cli": fe_extra["matchinglib_test_akaze"],
+                      "card": smi}))
+    print(json.dumps({"phase_9_s": time.perf_counter() - t_phase9,
+                      "card": smi}))
     for c_name, rec in steps:
         agree = rec.get("cpu_agree")
         if agree and min(agree.values()) < 0.99:
@@ -2572,6 +3052,23 @@ def main(argv=None) -> int:
             n_fp / FP32_PER_CLK_SM))
         for n_int, n_fp in zip(KNN2_INT_OPS, KNN2_FP32_OPS))
     k2_bound = min(k2_popc, k2_tc)
+    # K2a at 512 bits (phase 9's ring descriptors): twice the words, two
+    # tensor-core products per tile, the same epilogue per pair
+    n1w, n2w = k2a16_cases[0][0].shape[0], k2a16_cases[0][1].shape[0]
+    pairs16 = n1w * n2w
+    k2_16_bytes = (n1w + n2w) * 64 + n2w + n1w * 12
+    k2_16_popc = _bound(k2_16_bytes,
+                        pairs16 * 16 / (POPC_PER_CLK_SM * sm_clk_s))
+    k2_16_tc = _bound(k2_16_bytes, pairs16 / sm_clk_s * max(
+        2 * 512 / BMMA_OPS_PER_CLK_SM, KNN2_INT_OPS[0] / INT32_PER_CLK_SM))
+    k2_16_bound = min(k2_16_popc, k2_16_tc)
+
+    def fe_launches(name):
+        return {row: rec["launches"][name] for row, rec in fe_rows.items()}
+
+    def fe_batch_launches(name):
+        return {row: rec["launches"][name]
+                for row, rec in fe_extra["batch"].items()}
     kernels_line = {"kernels": [
         {"name": "fast_nms", "route": "cuda",
          "source": "matchinglib_poselib_torch/csrc/fast_nms.cu",
@@ -2587,12 +3084,17 @@ def main(argv=None) -> int:
          "launches_batch_branches": {k: v["launches"]["fast_nms"]
                                      for k, v in branch_recs.items()},
          "launches_apps": {k: v["fast_nms"] for k, v in apps_launches.items()},
+         "launches_frontend": fe_launches("fast_nms"),
+         "launches_frontend_batch": fe_batch_launches("fast_nms"),
+         "launches_frontend_cli":
+             fe_extra["matchinglib_test_akaze"]["launches"]["fast_nms"],
          "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
          "bound_pipe": k1_pipe if k1_bound[1] == "operations" else "memory",
          "bound_pipes_ms": {k: v * 1e3 for k, v in k1_pipes.items()},
          "library_ms": None, "tie_mismatches": k1_ties,
          "all_cases_max_abs_err": k1_pad_err,
+         "pyramid_levels_checked": k2a16["k1_levels"],
          "all_cases_tie_mismatches": k1_pad_ties,
          "kernels_per_call": k1_per_call,
          "device_ms": k1_dev_ms, "plain_device_ms": k1_plain_dev_ms},
@@ -2608,6 +3110,21 @@ def main(argv=None) -> int:
          "launches_batch_branches": {k: v["launches"]["knn2"]
                                      for k, v in branch_recs.items()},
          "launches_apps": {k: v["knn2"] for k, v in apps_launches.items()},
+         "launches_frontend": fe_launches("knn2"),
+         "launches_frontend_batch": fe_batch_launches("knn2"),
+         "launches_frontend_cli":
+             fe_extra["matchinglib_test_akaze"]["launches"]["knn2"],
+         "max_abs_err_16w": k2a16["max_abs_err"],
+         "shape_16w": k2a16["shape"],
+         "ms_16w": k2a16["ms"], "plain_ms_16w": k2a16["plain_ms"],
+         "device_ms_16w": k2a16["device_ms"],
+         "plain_device_ms_16w": k2a16["plain_device_ms"],
+         "ms_16w_guided": k2a16["ms_guided"],
+         "plain_ms_16w_guided": k2a16["plain_ms_guided"],
+         "device_ms_16w_guided": k2a16["device_ms_guided"],
+         "bound_ms_16w": k2_16_bound[0], "bound_by_16w": k2_16_bound[1],
+         "bound_route_16w": "tensor cores" if k2_16_bound is k2_16_tc
+         else "popc",
          "ms": k2_ms[0], "plain_ms": k2_plain_ms[0],
          "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
          "bound_route": "tensor cores" if k2_bound is k2_tc else "popc",
@@ -2621,7 +3138,8 @@ def main(argv=None) -> int:
         {"name": "knn2_l2", "route": "cuda",
          "source": "matchinglib_poselib_torch/csrc/knn2_l2.cu",
          "replaces": "matchinglib_poselib_tpu/ops/pallas/knn.py:51",
-         "launches": sift_launches["knn2_l2"], "max_abs_err": k2b_err,
+         "launches": sift_launches["knn2_l2"],
+         "max_abs_err": max(k2b_err, k2a16["k2b_max_abs_err"]),
          "launches_batch": batch_rec["launches"]["knn2_l2"],
          "launches_match_menu": {k: v["knn2_l2"]
                                  for k, v in match_launches.items()},
@@ -2629,6 +3147,8 @@ def main(argv=None) -> int:
          "launches_batch_branches": {k: v["launches"]["knn2_l2"]
                                      for k, v in branch_recs.items()},
          "launches_apps": {k: v["knn2_l2"] for k, v in apps_launches.items()},
+         "launches_frontend": fe_launches("knn2_l2"),
+         "launches_frontend_batch": fe_batch_launches("knn2_l2"),
          "ms": k2b["sift"][0]["ms"], "plain_ms": k2b["sift"][0]["plain_ms"],
          "device_ms": k2b["sift"][0]["device_ms"],
          "plain_device_ms": k2b["sift"][0]["plain_device_ms"],

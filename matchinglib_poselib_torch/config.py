@@ -66,8 +66,8 @@ class DetectorConfig:
     features.cpp:506): we keep the strongest response per spatial grid cell.
     """
 
-    # the port takes FAST | ORB | BRISK (single scale), SIFT (DoG) and SURF
-    # (Hessian); other names of features.DETECTOR_ALIASES raise
+    # any name of features.DETECTOR_ALIASES (ORB and BRISK run the
+    # pyramid detector with pyramid_levels > 1)
     kind: str = "FAST"
     max_keypoints: int = 2048  # static array capacity; masked when fewer
     fast_threshold: float = 20.0
@@ -89,8 +89,7 @@ class DetectorConfig:
 class DescriptorConfig:
     """Descriptor extraction (reference: features.cpp:397-484,849-971)."""
 
-    # the port takes ORB (256-bit binary), SIFT (128 x f32) and SURF / KAZE
-    # (M-SURF, 64 x f32); other names of features.DESCRIPTOR_ALIASES raise
+    # any name of features.DESCRIPTOR_ALIASES
     kind: str = "ORB"
     patch_size: int = 31
     oriented: bool = True

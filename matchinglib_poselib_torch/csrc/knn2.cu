@@ -1,58 +1,71 @@
 // Fused binary 2-NN search with an optional radius gate, on the tensor
-// cores.
+// cores, for 256- and 512-bit descriptors.
 //
 // Replaces the packed binary body of the Pallas TPU kernel
 // matchinglib_poselib_tpu/ops/pallas/knn.py (knn2, kernel body
-// _knn2_kernel_packed, :131; pallas_call at :285). For every query row:
-// the Hamming distance to every candidate, the candidate validity penalty
-// and, for xy_mode 1 (radius per query) or 2 (radius per candidate), the
-// gate |pred_i - pts2_j|^2 <= r^2; then the best distance, its column
-// (lowest column on ties) and the second-best distance. Output: d_best,
-// d_second as float (1e9 when no candidate is valid and inside the gate)
-// and idx (-1 then), bit-identical to the plain version in
-// ops/kernels/knn2.py.
+// _knn2_kernel_packed, :131; pallas_call at :285), which takes any
+// descriptor width. For every query row: the Hamming distance to every
+// candidate, the candidate validity penalty and, for xy_mode 1 (radius
+// per query) or 2 (radius per candidate), the gate |pred_i - pts2_j|^2 <=
+// r^2; then the best distance, its column (lowest column on ties) and the
+// second-best distance. Output: d_best, d_second as float (1e9 when no
+// candidate is valid and inside the gate) and idx (-1 then),
+// bit-identical to the plain version in ops/kernels/knn2.py. The kernel
+// is built for kWords = 8 (256 bits) and 16 (512 bits) 32-bit words per
+// descriptor; the wrapper pads narrower descriptors with zero words,
+// which add nothing to a popcount.
 //
 // The product. The TPU body multiplies +-1 signs on the MXU. Here each
-// 16 x 8 tile of pairs is one mma.sync.m16n8k256 .b1 .and.popc on the
-// packed words as they are: c = popc(a & b) exactly, in s32, and ham =
-// pa + pb - 2 c with pa, pb the row and column popcounts. On sm_90a this
-// is one BMMA instruction (a hardware tensor-core op, not an emulation;
+// 16 x 8 tile of pairs is one mma.sync.m16n8k256 .b1 .and.popc per 256
+// bits on the packed words as they are (two, accumulating into the same
+// registers, at 512 bits): c = popc(a & b) exactly, in s32, and ham = pa
+// + pb - 2 c with pa, pb the row and column popcounts. On sm_90a this is
+// one BMMA instruction (a hardware tensor-core op, not an emulation;
 // chip_probes/mma_probe.py shows it in the SASS and checks it exact). At
-// 2048 x 2048 the whole product is 32 K such instructions, well under a
-// microsecond on 132 SMs, so neither wgmma nor TMA would buy anything
-// here: wgmma has no .b1 form, and the inputs (2 x 64 KB) live in L2.
+// 2048 x 2048 x 256 bits the whole product is 32 K such instructions,
+// well under a microsecond on 132 SMs, so neither wgmma nor TMA would buy
+// anything here: wgmma has no .b1 form, and the inputs (2 x 64 KB, or 2 x
+// 128 KB at 512 bits) live in L2.
 //
 // What bounds it, then: the epilogue, one key per pair in 32-bit integer
 // ops (64 per clock per SM), and at the main path's size the fixed
 // latency of one short launch (the first loads, the cluster's barrier and
 // merge; PERF.md has the measured split). Design:
-// - Keys. key = (field << 21) | column with field = pb - 2 c + 256, the
-//   Hamming distance less the row's constant pa - 256 (a constant per row
-//   moves no min), so one IMAD per pair builds the key from a per-column
-//   constant ((pb + 256) << 21 | column). A fault (invalid column or
-//   outside the gate) sets bit 31; valid fields are <= 512 < 1024, so a
-//   faulted key sorts after every valid one and a second fault changes
-//   nothing. Lowest-column ties fall out of the native 32-bit min; the
-//   top-2 update is m2 = min(m2, max(m1, k)); m1 = min(m1, k). Columns
-//   past the end stage as zero words with the key 0xffffffff (n2 <=
-//   2^21, checked by the wrapper).
+// - Keys. key = (field << kColBits) | column with field = pb - 2 c +
+//   kBits, the Hamming distance less the row's constant pa - kBits (a
+//   constant per row moves no min), so one IMAD per pair builds the key
+//   from a per-column constant ((pb + kBits) << kColBits | column). Since
+//   c <= min(pa, pb), the field lies in 0..2 kBits: 0..512 at 256 bits,
+//   10 bits with 21 column bits; 0..1024 at 512 bits (1024 for an
+//   all-zero row against an all-ones column), 11 bits with 20 column
+//   bits. A fault (invalid column or outside the gate)
+//   sets bit 31, above every valid key, so a faulted key sorts after
+//   every valid one and a second fault changes nothing. Lowest-column
+//   ties fall out of the native 32-bit min; the top-2 update is m2 =
+//   min(m2, max(m1, k)); m1 = min(m1, k). Columns past the end stage as
+//   zero words with the key 0xffffffff (n2 <= 2^kColBits, checked by the
+//   wrapper).
 // - Filling the card. A block owns 64 query rows (4 warps x 16, the A
 //   fragments in registers for the whole sweep) and one of 8 slices of
 //   the columns; the 8 slices of one row block form a thread-block
 //   cluster (8 is the portable cluster size; 32 x 8 = 256 blocks at the
 //   main path's 2048 rows), and after the sweep the cluster merges its
-//   slices' top-2 pairs through distributed shared memory. One launch per call, no scratch in device memory.
-//   Each lane keeps four independent (min, second min) chains, one per
-//   row and column parity of its accumulator fragment.
-// - Overlapping loads. Candidates are staged 256 columns at a time by
-//   cp.async into a 2-stage ring (at the main path's shape a slice is
-//   one tile); the next tile's copies and the loads of its per-column
-//   constants (validity, x, y, r^2) are in flight while the current tile
-//   is multiplied, and the thread that copied a column computes its
-//   popcount and key constant once per block. One barrier per tile.
-//   Staged columns are padded to 12 words, so the fragment loads of a
-//   warp hit 32 distinct banks. Each warp issues 8 products before their
-//   epilogues, so the tensor-core latency overlaps.
+//   slices' top-2 pairs through distributed shared memory. One launch
+//   per call, no scratch in device memory. Each lane keeps four
+//   independent (min, second min) chains, one per row and column parity
+//   of its accumulator fragment.
+// - Overlapping loads. Candidates are staged kTile columns at a time (256
+//   at 256 bits, 128 at 512 bits, so the static shared memory stays
+//   under 48 KB) by cp.async into a 2-stage ring; the next tile's copies
+//   and the loads of its per-column constants (validity, x, y, r^2) are
+//   in flight while the current tile is multiplied, and the thread that
+//   copied a column computes its popcount and key constant once per
+//   block. One barrier per tile. Staged columns are padded to kStride
+//   words (12 for 8, 20 for 16: 16-byte multiples whose g * kStride mod
+//   32 for the 8 fragment columns g are 8 distinct multiples of 4), so
+//   the fragment loads of a warp (word t of column g, 0 <= t < 4) hit 32
+//   distinct banks, for either 256-bit half. Each warp issues 8 products
+//   before their epilogues, so the tensor-core latency overlaps.
 // - The gate uses round-to-nearest multiplies and adds with no FMA
 //   contraction, so it decides exactly as the plain version's separate
 //   ops do.
@@ -65,19 +78,26 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kWords = 8;       // 256-bit descriptors
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = kWarps * 16;  // query rows per block
-constexpr int kTile = 256;      // candidate columns per stage
-constexpr int kColsPerThread = kTile / kThreads;  // columns each thread stages
 constexpr int kGroup = 8;       // 16 x 8 products in flight per warp
-constexpr int kStride = 12;     // words per staged column (8 + 4 of padding)
-constexpr int kColBits = 21;
-constexpr unsigned kColMask = (1u << kColBits) - 1u;
 constexpr unsigned kFault = 1u << 31;
 constexpr unsigned kNone = ~0u;
 constexpr int kSplits = 8;      // column slices = blocks per cluster (portable)
+
+// per descriptor width: candidate columns per stage, words per staged
+// column (padding included), bits of the key's column field
+template <int kWords>
+struct Width;
+template <>
+struct Width<8> {
+  static constexpr int kTile = 256, kStride = 12, kColBits = 21;
+};
+template <>
+struct Width<16> {
+  static constexpr int kTile = 128, kStride = 20, kColBits = 20;
+};
 
 // d += popc(A & B) for one 16 x 8 tile: A (16 x 256 bits, row) in a[4],
 // B (256 bits x 8, col) in b0, b1
@@ -110,7 +130,7 @@ __device__ __forceinline__ void merge(unsigned o1, unsigned o2, unsigned& m1,
   m1 = min(m1, o1);
 }
 
-template <int kMode>
+template <int kWords, int kMode>
 __global__ void __launch_bounds__(kThreads)
 knn2_kernel(const unsigned* __restrict__ desc1,
             const unsigned* __restrict__ desc2,
@@ -119,6 +139,13 @@ knn2_kernel(const unsigned* __restrict__ desc1,
             const float* __restrict__ pts2, int n1, int n2,
             int cols_per_split, float* __restrict__ d_best,
             float* __restrict__ d_second, int* __restrict__ idx) {
+  constexpr int kTile = Width<kWords>::kTile;
+  constexpr int kStride = Width<kWords>::kStride;
+  constexpr int kColBits = Width<kWords>::kColBits;
+  constexpr unsigned kColMask = (1u << kColBits) - 1u;
+  constexpr int kBits = 32 * kWords;
+  constexpr int kChunks = kWords / 8;  // 256-bit products per tile
+  constexpr int kColsPerThread = kTile / kThreads;  // columns staged each
   __shared__ __align__(16) unsigned s_desc[2][kTile][kStride];
   __shared__ __align__(8) unsigned s_key[2][kTile];
   __shared__ __align__(8) float s_x[2][kMode ? kTile : 2];
@@ -135,15 +162,19 @@ knn2_kernel(const unsigned* __restrict__ desc1,
   const int cend = min(n2, cbeg + cols_per_split);
   const int n_tiles = cend > cbeg ? (cend - cbeg + kTile - 1) / kTile : 0;
 
-  // this lane's A fragment: rows g and g + 8 of the warp's 16, words t and
-  // 4 + t (the m16n8k256 .b1 layout); rows past n1 repeat the last row
-  unsigned a[4];
+  // this lane's A fragments, one per 256 bits q: rows g and g + 8 of the
+  // warp's 16, words 8 q + t and 8 q + 4 + t (the m16n8k256 .b1 layout);
+  // rows past n1 repeat the last row
+  unsigned a[kChunks][4];
   float qx[2] = {0.0f, 0.0f}, qy[2] = {0.0f, 0.0f}, qr2[2] = {0.0f, 0.0f};
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = min(row0 + warp * 16 + g + 8 * h, n1 - 1);
-    a[h] = desc1[(size_t)row * kWords + t];
-    a[2 + h] = desc1[(size_t)row * kWords + 4 + t];
+#pragma unroll
+    for (int q = 0; q < kChunks; ++q) {
+      a[q][h] = desc1[(size_t)row * kWords + 8 * q + t];
+      a[q][2 + h] = desc1[(size_t)row * kWords + 8 * q + 4 + t];
+    }
     if constexpr (kMode != 0) {
       qx[h] = pred[2 * row];
       qy[h] = pred[2 * row + 1];
@@ -168,8 +199,9 @@ knn2_kernel(const unsigned* __restrict__ desc1,
       const int col = cbeg + tile * kTile + c;
       const bool in = col < cend;
       const unsigned* src = desc2 + (size_t)(in ? col : 0) * kWords;
-      cp_async16(&s_desc[s][c][0], src, in ? 16 : 0);
-      cp_async16(&s_desc[s][c][4], src + 4, in ? 16 : 0);
+#pragma unroll
+      for (int v = 0; v < kWords / 4; ++v)
+        cp_async16(&s_desc[s][c][4 * v], src + 4 * v, in ? 16 : 0);
       c_valid[u] = in && valid2[col];
       if constexpr (kMode != 0) {
         c_x[u] = in ? pts2[2 * col] : 0.0f;
@@ -187,12 +219,14 @@ knn2_kernel(const unsigned* __restrict__ desc1,
       const int col = cbeg + tile * kTile + c;
       unsigned key = kNone;
       if (col < cend) {
-        const uint4 lo = *reinterpret_cast<const uint4*>(&s_desc[s][c][0]);
-        const uint4 hi = *reinterpret_cast<const uint4*>(&s_desc[s][c][4]);
-        const unsigned pb = __popc(lo.x) + __popc(lo.y) + __popc(lo.z) +
-                            __popc(lo.w) + __popc(hi.x) + __popc(hi.y) +
-                            __popc(hi.z) + __popc(hi.w);
-        key = (c_valid[u] ? 0u : kFault) | ((pb + 256u) << kColBits) |
+        unsigned pb = 0u;
+#pragma unroll
+        for (int v = 0; v < kWords / 4; ++v) {
+          const uint4 w =
+              *reinterpret_cast<const uint4*>(&s_desc[s][c][4 * v]);
+          pb += __popc(w.x) + __popc(w.y) + __popc(w.z) + __popc(w.w);
+        }
+        key = (c_valid[u] ? 0u : kFault) | ((pb + kBits) << kColBits) |
               (unsigned)col;
       }
       s_key[s][c] = key;
@@ -221,7 +255,9 @@ knn2_kernel(const unsigned* __restrict__ desc1,
       for (int e = 0; e < kGroup; ++e) {
         const unsigned* w = s_desc[s][(nb0 + e) * 8 + g];
         d[e][0] = d[e][1] = d[e][2] = d[e][3] = 0u;
-        mma_and_popc(d[e], a, w[t], w[4 + t]);
+#pragma unroll
+        for (int q = 0; q < kChunks; ++q)
+          mma_and_popc(d[e], a[q], w[8 * q + t], w[8 * q + 4 + t]);
       }
 #pragma unroll
       for (int e = 0; e < kGroup; ++e) {
@@ -265,7 +301,10 @@ knn2_kernel(const unsigned* __restrict__ desc1,
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     merge(m1[2 * h + 1], m2[2 * h + 1], m1[2 * h], m2[2 * h]);
-    int pa = __popc(a[h]) + __popc(a[2 + h]);
+    int pa = 0;
+#pragma unroll
+    for (int q = 0; q < kChunks; ++q)
+      pa += __popc(a[q][h]) + __popc(a[q][2 + h]);
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
       const unsigned o1 = __shfl_xor_sync(0xffffffffu, m1[2 * h], off);
@@ -297,7 +336,7 @@ knn2_kernel(const unsigned* __restrict__ desc1,
     for (int q = 0; q < kSplits; ++q) merge(o1[q], o2[q], b1, b2);
     const int row = row0 + lr;
     if (row < n1) {
-      const int pa = s_pa[lr] - 256;  // the same rows in every block
+      const int pa = s_pa[lr] - kBits;  // the same rows in every block
       const bool ok1 = !(b1 & kFault);
       d_best[row] = ok1 ? (float)((int)(b1 >> kColBits) + pa) : 1e9f;
       idx[row] = ok1 ? (int)(b1 & kColMask) : -1;
@@ -308,7 +347,7 @@ knn2_kernel(const unsigned* __restrict__ desc1,
   cluster.sync();  // keep every block's s_m1 / s_m2 alive until read
 }
 
-template <int kMode>
+template <int kWords, int kMode>
 cudaError_t launch(const void* desc1, const void* desc2, const void* valid2,
                    const void* pred, const void* rad2, const void* pts2,
                    int n1, int n2, float* d_best, float* d_second,
@@ -326,7 +365,7 @@ cudaError_t launch(const void* desc1, const void* desc2, const void* valid2,
   cfg.numAttrs = 1;
   const int cols_per_split = (n2 + kSplits - 1) / kSplits;
   return cudaLaunchKernelEx(
-      &cfg, knn2_kernel<kMode>, static_cast<const unsigned*>(desc1),
+      &cfg, knn2_kernel<kWords, kMode>, static_cast<const unsigned*>(desc1),
       static_cast<const unsigned*>(desc2),
       static_cast<const unsigned char*>(valid2),
       static_cast<const float*>(pred), static_cast<const float*>(rad2),
@@ -334,38 +373,49 @@ cudaError_t launch(const void* desc1, const void* desc2, const void* valid2,
       d_second, idx);
 }
 
+template <int kWords>
+cudaError_t dispatch(const void* desc1, const void* desc2, const void* valid2,
+                     const void* pred, const void* rad2, const void* pts2,
+                     int n1, int n2, int xy_mode, float* d_best,
+                     float* d_second, int* idx, cudaStream_t stream) {
+  if (n2 > (1 << Width<kWords>::kColBits)) return cudaErrorInvalidValue;
+  if (xy_mode == 0)
+    return launch<kWords, 0>(desc1, desc2, valid2, pred, rad2, pts2, n1, n2,
+                             d_best, d_second, idx, stream);
+  if (xy_mode == 1)
+    return launch<kWords, 1>(desc1, desc2, valid2, pred, rad2, pts2, n1, n2,
+                             d_best, d_second, idx, stream);
+  return launch<kWords, 2>(desc1, desc2, valid2, pred, rad2, pts2, n1, n2,
+                           d_best, d_second, idx, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-// desc1 (n1, 8), desc2 (n2, 8) int32 bit patterns, 16-byte aligned;
-// valid2 (n2,) bool; xy_mode 0: pred, rad2, pts2 unused (may be null);
-// 1: pred (n1, 2), rad2 (n1,), pts2 (n2, 2); 2: pred (n1, 2), rad2 (n2,),
-// pts2 (n2, 2). n1 >= 1, 0 <= n2 <= 2^21. The column sweep is cut into 8
-// slices, one cluster of 8 blocks per 64 query rows. Outputs (n1,)
-// float32, float32, int32. One launch on `stream`; returns its cudaError_t
-// (0 on success).
+// desc1 (n1, words), desc2 (n2, words) int32 bit patterns, words 8 or 16,
+// 16-byte aligned; valid2 (n2,) bool; xy_mode 0: pred, rad2, pts2 unused
+// (may be null); 1: pred (n1, 2), rad2 (n1,), pts2 (n2, 2); 2: pred (n1,
+// 2), rad2 (n2,), pts2 (n2, 2). n1 >= 1, 0 <= n2 <= 2^21 at 8 words, 2^20
+// at 16. The column sweep is cut into 8 slices, one cluster of 8 blocks
+// per 64 query rows. Outputs (n1,) float32, float32, int32. One launch on
+// `stream`; returns its cudaError_t (0 on success).
 int knn2_launch(const void* desc1, const void* desc2, const void* valid2,
                 const void* pred, const void* rad2, const void* pts2, int n1,
-                int n2, int xy_mode, void* d_best, void* d_second, void* idx,
-                void* stream) {
-  if (n1 < 1 || n2 < 0 || n2 > (1 << kColBits) || xy_mode < 0 ||
-      xy_mode > 2)
+                int n2, int words, int xy_mode, void* d_best, void* d_second,
+                void* idx, void* stream) {
+  if (n1 < 1 || n2 < 0 || xy_mode < 0 || xy_mode > 2 ||
+      (words != 8 && words != 16))
     return (int)cudaErrorInvalidValue;
   auto* db = static_cast<float*>(d_best);
   auto* ds = static_cast<float*>(d_second);
   auto* ix = static_cast<int*>(idx);
   auto s = (cudaStream_t)stream;
-  cudaError_t err;
-  if (xy_mode == 0)
-    err = launch<0>(desc1, desc2, valid2, pred, rad2, pts2, n1, n2, db, ds,
-                    ix, s);
-  else if (xy_mode == 1)
-    err = launch<1>(desc1, desc2, valid2, pred, rad2, pts2, n1, n2, db, ds,
-                    ix, s);
-  else
-    err = launch<2>(desc1, desc2, valid2, pred, rad2, pts2, n1, n2, db, ds,
-                    ix, s);
+  const cudaError_t err =
+      words == 8 ? dispatch<8>(desc1, desc2, valid2, pred, rad2, pts2, n1,
+                               n2, xy_mode, db, ds, ix, s)
+                 : dispatch<16>(desc1, desc2, valid2, pred, rad2, pts2, n1,
+                                n2, xy_mode, db, ds, ix, s);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 

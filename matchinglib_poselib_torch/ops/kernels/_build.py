@@ -35,7 +35,7 @@ SIGNATURES = {
     },
     "knn2": {
         "knn2_launch": (
-            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P], _I
+            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P], _I
         ),
         "knn2_error_string": ([_I], ctypes.c_char_p),
     },

@@ -4,12 +4,17 @@ Two kernels replace the two bodies of ``matchinglib_poselib_tpu/ops/
 pallas/knn.py`` (``knn2``):
 
 - ``knn2`` (``csrc/knn2.cu``), the packed binary body
-  (``_knn2_kernel_packed``): descriptors are (N, 8) int32 words (256
+  (``_knn2_kernel_packed``): descriptors are (N, W) int32 words (32 W
   bits, the bit patterns of the JAX package's uint32 words); Hamming
   distances from the tensor cores' b1 AND-popc product
-  (``mma.sync.m16n8k256``), exact. ``knn2_plain`` is the dense Hamming
-  matrix + validity penalty + radius gate + lowest-index top-2, with the
-  same outputs bit for bit. On the card n2 <= 2^21 (the column field of
+  (``mma.sync.m16n8k256``), exact. The kernel is built for 8 and 16
+  words (256 and 512 bits); on the card the wrapper pads 1 <= W < 8 to 8
+  and 8 < W < 16 to 16 with zero words, which change no distance, and
+  refuses W > 16 (no descriptor row is wider: BOLD's 32 words go
+  through its own masked matcher). ``knn2_plain`` is the dense Hamming
+  matrix + validity penalty + radius gate + lowest-index top-2 at any
+  width, with the same outputs bit for bit. On the card n2 <=
+  ``max_columns(W)`` (2^21 at 8 words, 2^20 at 16: the column field of
   the kernel's 32-bit key) and the descriptors are 16-byte aligned.
 - ``knn2_l2`` (``csrc/knn2_l2.cu``), the general body (``_knn2_kernel``):
   (N, D) float32 descriptors, squared L2 distances in true fp32.
@@ -33,7 +38,8 @@ import torch
 from matchinglib_poselib_torch.ops.kernels import _build
 
 BIG = 1e9
-WORDS = 8
+# descriptor widths (32-bit words) csrc/knn2.cu is built for
+KERNEL_WORDS = (8, 16)
 _PENALTY = 1 << 16  # added to the distance field of invalid / gated keys
 
 
@@ -109,26 +115,45 @@ def _check_args(fn, desc1, desc2, valid2, pred, rad2, pts2, xy_mode,
         raise ValueError(f"{fn}: all inputs must be on one device")
 
 
-MAX_COLUMNS = 1 << 21  # the column field of csrc/knn2.cu's 32-bit key
+def max_columns(words: int) -> int:
+    """Most candidates the kernel takes at `words` (padded) words: the
+    column field of csrc/knn2.cu's 32-bit key, 21 bits at 256 bits and 20
+    at 512 (the distance field needs 11 bits there)."""
+    return 1 << (21 if words <= 8 else 20)
+
+
+def kernel_words(words: int) -> int:
+    """The width the kernel runs `words`-word descriptors at (zero words
+    padded), or ValueError for a width it does not take."""
+    for w in KERNEL_WORDS:
+        if 1 <= words <= w:
+            return w
+    raise ValueError(f"knn2: {words} words per descriptor; the kernel takes "
+                     f"1..{KERNEL_WORDS[-1]}")
 
 
 def knn2(desc1, desc2, valid2, pred=None, rad2=None, pts2=None,
          xy_mode: int = 0):
     """Two nearest neighbours (Hamming) of every desc1 row among valid
-    desc2 rows."""
+    desc2 rows; (N, W) int32 words, 1 <= W <= 16 on the card."""
     if xy_mode not in (0, 1, 2):
         raise ValueError(f"knn2: xy_mode {xy_mode} not in (0, 1, 2)")
     if desc1.device.type == "cpu":
         return knn2_plain(desc1, desc2, valid2, pred, rad2, pts2, xy_mode)
     if desc1.device.type != "cuda":
         raise ValueError(f"knn2: unsupported device {desc1.device}")
+    words = desc1.shape[1] if desc1.dim() == 2 else -1
     _check_args("knn2", desc1, desc2, valid2, pred, rad2, pts2, xy_mode,
-                torch.int32, WORDS)
+                torch.int32, words)
+    padded = kernel_words(words)
+    if padded != words:
+        desc1 = torch.nn.functional.pad(desc1, (0, padded - words))
+        desc2 = torch.nn.functional.pad(desc2, (0, padded - words))
     dev = desc1.device
     n1, n2 = desc1.shape[0], desc2.shape[0]
-    if n2 > MAX_COLUMNS:
+    if n2 > max_columns(padded):
         raise ValueError(f"knn2: {n2} candidates, the kernel takes at most "
-                         f"{MAX_COLUMNS}")
+                         f"{max_columns(padded)} at {padded} words")
     if desc1.data_ptr() % 16 or desc2.data_ptr() % 16:
         raise ValueError("knn2: descriptors must be 16-byte aligned")
     d_best = torch.empty((n1,), dtype=torch.float32, device=dev)
@@ -145,7 +170,7 @@ def knn2(desc1, desc2, valid2, pred=None, rad2=None, pts2=None,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.knn2_launch(
             desc1.data_ptr(), desc2.data_ptr(), valid2.data_ptr(),
-            ptr(pred), ptr(rad2), ptr(pts2), n1, n2, xy_mode,
+            ptr(pred), ptr(rad2), ptr(pts2), n1, n2, padded, xy_mode,
             d_best.data_ptr(), d_second.data_ptr(), idx.data_ptr(), stream,
         )
     _build.check(lib, "knn2", rc)

@@ -167,17 +167,21 @@ def test_pack_bits_matches_uint32_words():
 
 
 def test_unported_detector_raises():
+    """The rows this test once saw refused (HARRIS, STAR, DAISY) are
+    ported: they run and give the JAX package's shapes; no row of either
+    registry raises (tests/test_torch_frontend_menu.py walks them all)."""
     for kind in ("HARRIS", "STAR"):
-        with pytest.raises(NotImplementedError):
-            tfeat.detect_keypoints(torch.zeros(64, 64),
-                                   tcfg.DetectorConfig(kind=kind))
-    with pytest.raises(NotImplementedError):
-        tfeat.compute_descriptors(
-            torch.zeros(64, 64),
-            tfeat.Keypoints(*(torch.zeros(4, 2),) + (torch.zeros(4),) * 3
-                            + (torch.zeros(4, dtype=torch.bool),)),
-            tcfg.DescriptorConfig(kind="DAISY"),
-        )
+        kps = tfeat.detect_keypoints(torch.zeros(64, 64),
+                                     tcfg.DetectorConfig(kind=kind,
+                                                         max_keypoints=32))
+        assert kps.xy.shape == (32, 2) and not bool(kps.mask.any())
+    desc, _ = tfeat.compute_descriptors(
+        torch.zeros(64, 64),
+        tfeat.Keypoints(*(torch.full((4, 2), 32.0),) + (torch.zeros(4),) * 3
+                        + (torch.zeros(4, dtype=torch.bool),)),
+        tcfg.DescriptorConfig(kind="DAISY"),
+    )
+    assert desc.shape == (4, 200) and desc.dtype == torch.float32
 
 
 def _jax_patches(seed, k=200):

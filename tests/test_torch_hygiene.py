@@ -27,8 +27,8 @@ def test_port_runs_without_importing_jax():
     chip_smoke's matching options (sub-pixel refinement + VFC, the SOF
     filter) and with LMEDS and the Stewenius solver together, two frames
     of StereoRefine at chip_smoke's stream config (a small pool) with a
-    checkpoint round trip, and the FileStorage readers, and never imports
-    jax."""
+    checkpoint round trip, the FileStorage readers, and run at AKAZE/AKAZE
+    and FAST/BOLD, and never imports jax."""
     code = textwrap.dedent("""
         import dataclasses, sys
         import numpy as np, torch
@@ -120,6 +120,17 @@ def test_port_runs_without_importing_jax():
         checkpoint.load_stereo_refine(back, path)
         assert int(back.pool.n_valid) == int(sr.pool.n_valid)
         assert isinstance(back.pool, pool.Pool)
+        for det_kind, desc_kind in (("AKAZE", "AKAZE"), ("FAST", "BOLD")):
+            pipe = pipeline.StereoPipeline(
+                c.DetectorConfig(kind=det_kind, max_keypoints=64,
+                                 fast_threshold=12.0, column_bands=4),
+                c.DescriptorConfig(kind=desc_kind), pose_cfg=base,
+                device="cpu")
+            fcorr, fpose = pipe.run(img1, img2, K, K, np.zeros(5),
+                                    np.zeros(5),
+                                    torch.Generator().manual_seed(0))
+            assert fcorr.mask.shape == (64,), det_kind
+            assert bool(torch.isfinite(fpose.R).all()), det_kind
         fs = "eval/fixtures/semireal_fs/"
         frame = opencv_fs.sequ_frame(
             opencv_fs.read_cam_pars(fs + "sequSingleFrameData_0.yaml.gz"),
@@ -494,3 +505,47 @@ def test_stream_card_vs_cpu():
             chip_smoke.STREAM_POOL_RTOL * max(r_cpu.pool_size, 1))
         assert chip_smoke._rot_deg(r.R, r_cpu.R) < chip_smoke.POSE_ROT_DEG
         assert chip_smoke._dir_deg(r.t, r_cpu.t) < chip_smoke.POSE_TANG_DEG
+
+
+@pytest.mark.gpu
+def test_frontend_rows_card_vs_cpu():
+    """chip_smoke.py phase 9's checks at a small size: K2a at 2, 4 and 16
+    words (ragged shapes, the 512-bit key's extreme pairs, 17 words
+    refused) and K2b at the float rows' depths against their plain
+    versions; then every row of frontend_rows on the card with its
+    launches (frontend_expected), and the CPU path's slots, aligned by
+    position, against the card's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke
+    from matchinglib_poselib_torch import config as c
+    from matchinglib_poselib_torch.models import pipeline
+    from matchinglib_poselib_torch.ops import features
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    for width in chip_smoke.FRONTEND_WIDTHS:
+        chip_smoke.check_knn2_ragged(
+            torch, knn2, chip_smoke.knn2_ragged_cases(torch, rng, dev, width))
+    chip_smoke.check_knn2_extreme(torch, knn2,
+                                  chip_smoke.knn2_extreme_cases(torch, dev))
+    with pytest.raises(ValueError):
+        wide = torch.zeros((4, 17), dtype=torch.int32, device=dev)
+        knn2.knn2(wide, wide, torch.ones(4, dtype=torch.bool, device=dev))
+    chip_smoke.check_knn2_l2_ragged(
+        torch, knn2, chip_smoke.knn2_l2_ragged_cases(
+            torch, rng, dev, depths=chip_smoke.FRONTEND_L2_DEPTHS))
+    img1, img2, _, _, _ = chip_smoke.render_scene(0, 480, 240)
+    i1, i2 = (torch.from_numpy(x).to(dev) for x in (img1, img2))
+    match = c.MatchingConfig()
+    for name, det, desc in chip_smoke.frontend_rows(c):
+        kernels.reset_launch_counts()
+        corr = pipeline.get_correspondences(i1, i2, det, desc, match)
+        counts = kernels.launch_counts()
+        want = chip_smoke.frontend_expected(features, det, desc)
+        assert counts == want, (name, counts, want)
+        cpu = pipeline.get_correspondences(torch.from_numpy(img1),
+                                           torch.from_numpy(img2), det,
+                                           desc, match)
+        agree = chip_smoke.aligned_agreement(corr, cpu)
+        assert min(agree.values()) >= chip_smoke.FRONTEND_AGREE, (name, agree)
