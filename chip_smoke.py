@@ -150,6 +150,33 @@ Phases (any failure exits non-zero):
      ``matches_XXXX.npz`` equal to ``get_correspondences`` on the card;
      a ``frontend`` line per row with the card's name and power limit,
      and the phase's wall seconds.
+  10. the library layer (``library_kernel_checks``, ``library_phase``):
+     K2b against its plain version at ``KNN2_L2_RAGGED`` x D = 2 and 3,
+     and its times at 2048 x 2048 x 2 on pixel coordinates; the four
+     library estimators (fundamental 7pt and 8pt, rotation-only,
+     no-motion, QDEGSAC) on the flagship's card correspondences,
+     normalized, and on a planted pure rotation (``planted_rotation``),
+     seeded explicit streams, each on the card and on the CPU: the F rows
+     by ``check_f_row`` (the same samples, the card's mask its model's
+     rescoring on the CPU, its inliers >= 99% of the CPU's; each
+     hypothesis's distance from its sample's float64 solve and its
+     residual reported on both devices), the others' inlier masks on >= 99% of
+     slots (no-motion's equal), R within 1e-4, QDEGSAC's decision equal
+     (true on the planted rotation) and its E's pose within phase 4d's
+     bars; ``lk_flow`` from the left image of frame 1 to itself
+     shifted by (6, -4) px at the flagship's 2048 keypoints (status on >=
+     80%, median error < 0.25 px), LKOF (K2b at D = 2, once) and ALKOF
+     (K2a guided, once) from frame 1's left image to frame 2's, card vs
+     CPU (flow within 0.02 px and status on >= 99%, masks and match
+     slots on >= 99% outside near ties of 1 px^2), K2b against its plain
+     version at D = 2 on those coordinates; ``MatchingPoselibNode`` on
+     frames 1-3, plain and with stereoRef + evStepStereoStable = 2
+     (seeded streams), each pose within the accuracy bars, the CPU node
+     fed the card's correspondences within phase 4d's bars and the same
+     republish pattern; ``entry()``'s step under ``utils.profiling.trace``
+     (a non-empty trace file); the example on frames 1-3 as PNGs;
+     ``library`` lines with ms per call, host syncs and device ops, the
+     card's name and power limit, and the phase's wall seconds.
 
 Prints a JSON ``kernels`` line, one JSON ``step`` line per path, the
 card's name and power limit, and as its last line
@@ -2732,6 +2759,658 @@ def frontend_phase(torch, cfg, match, pose_cfg, imgs, Kt, dist, truth, dev,
     return rows, extra, failures
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the library layer
+# ---------------------------------------------------------------------------
+
+# A2: the rotation models' bar (max entry)
+LIB_MODEL_ATOL = 1e-4
+LIB_AGREE = 0.99
+LIB_TIMED_RUNS = 3
+LIB_ROT_PLANTED = 2048  # correspondences of the planted pure rotation
+# A3: the planted LK shift (x, y) in px and the JAX test's bars
+LK_SHIFT = (6.0, -4.0)
+LK_MEDIAN_ERR_PX = 0.25
+LK_STATUS_SHARE = 0.8
+FLOW_ATOL_PX = 0.02
+LKOF_RADIUS = 10.0
+ALKOF_MAX_HAMM = 60.0
+# LKOF's near ties in squared px: a slot counts only where the plain
+# version's gap d_second - d_best and |d_best - r^2| both exceed this
+NEAR_TIE_PX2 = 1.0
+# K2b at D = 2 and 3 (the pixel coordinates of LKOF; a depth that is not
+# a multiple of 4)
+LIB_L2_DEPTHS = (2, 3)
+F32_EPS = 2.0 ** -23
+# A4: the node's parameters (the flagship front end and hypotheses)
+NODE_PARAMS = {"f_detect_th": "12", "batch_hypotheses": "96",
+               "max_batches": "12"}
+NODE_STEREO = {"stereoRef": "1", "evStepStereoStable": "2"}
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _lib_timed(torch, dev, fn, runs=LIB_TIMED_RUNS):
+    """A warm call of `fn`, then `runs` calls: (the warm call's output,
+    {ms per call on a host clock that ends in a synchronize, host syncs
+    per call, device ops and busy ms of one profiled call (the card
+    only)})."""
+    from matchinglib_poselib_torch.utils.profiling import HostSyncs
+
+    out = fn()
+    _sync(torch, dev)
+    s0 = HostSyncs.count
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    _sync(torch, dev)
+    rec = {"ms": (time.perf_counter() - t0) * 1e3 / runs,
+           "host_syncs": (HostSyncs.count - s0) / runs,
+           "device_ops": None, "device_busy_ms": None}
+    if dev.type == "cuda":
+        rec["device_busy_ms"], rec["device_ops"], _ = _profile_step(torch,
+                                                                    fn)
+    return out, rec
+
+
+def _unit_sign(M):
+    M = np.asarray(M, np.float64)
+    M = M / np.linalg.norm(M)
+    return M * np.sign(M.flat[np.argmax(np.abs(M))])
+
+
+def planted_rotation(seed, n=LIB_ROT_PLANTED, outliers=0.2):
+    """A pure rotation (5 deg) seen by the scene's camera: normalized
+    correspondences (n, 2) with 0.1 px of noise (an eighth of the 0.8 px
+    threshold, as tests/test_pose_families.py keeps its noise a tenth of
+    its threshold) and `outliers` of them uniform, as float32 numpy."""
+    rng = np.random.default_rng(seed)
+    f = K_FULL[0, 0]
+    X = np.stack([rng.uniform(-6, 6, n), rng.uniform(-2, 2, n),
+                  rng.uniform(6, 40, n)], axis=1)
+    R = _rot((0.1, 1.0, 0.2), 5.0)
+    X2 = X @ R.T
+    x1 = X[:, :2] / X[:, 2:3] + rng.normal(0, 0.1 / f, (n, 2))
+    x2 = X2[:, :2] / X2[:, 2:3] + rng.normal(0, 0.1 / f, (n, 2))
+    k = int(outliers * n)
+    x2[:k] = rng.uniform(-0.6, 0.6, (k, 2))
+    return x1.astype(np.float32), x2.astype(np.float32)
+
+
+def _unit_models(M):
+    """(..., 3, 3) models -> (-1, 9) float64 rows of unit norm, sign fixed
+    by the largest entry."""
+    M = np.asarray(M, np.float64).reshape(-1, 9)
+    M = M / np.maximum(np.linalg.norm(M, axis=1, keepdims=True), 1e-300)
+    i = np.argmax(np.abs(M), axis=1)
+    return M * np.sign(M[np.arange(len(M)), i])[:, None]
+
+
+def _recording(orig, log):
+    """A stand-in for the family constructor `orig` whose family appends
+    each batch's (samples 1, samples 2, models, validity) to `log`, on
+    the host."""
+
+    def family():
+        fam = orig()
+
+        def solve(s1, s2):
+            M, v = fam.solve(s1, s2)
+            log.append(tuple(a.cpu() for a in (s1, s2, M, v)))
+            return M, v
+
+        return fam._replace(solve=solve)
+
+    return family
+
+
+def _sample_residuals(torch, s1, s2, M, v):
+    """Per valid model: the largest |h2^T F h1| / (|h1| |h2|) over its
+    sample's points, F of unit norm (float64)."""
+    h1, h2 = (torch.cat([s, torch.ones_like(s[..., :1])], dim=-1).double()
+              for s in (s1, s2))
+    U = torch.from_numpy(_unit_models(M)).reshape(M.shape)
+    r = torch.einsum("sni,smij,snj->smn", h2, U, h1).abs() / (
+        h1.norm(dim=-1) * h2.norm(dim=-1))[:, None]
+    return r.amax(dim=-1)[v].numpy()
+
+
+def check_f_row(torch, robust, name, logs, res, cpu, inp_cpu):
+    """A robust F row's card result against the CPU's: the same samples in
+    every batch both ran; the card's inlier mask equal to the CPU's
+    rescoring of the card's model on >= 99% of the slots; the card's
+    inliers >= 99% of the CPU's. `logs`: the card's and the CPU's batches
+    (``_recording``). The hypotheses themselves are reported, not held:
+    the minimal solves take the eigenvector of A^T A, whose float32
+    forward error on these ill-conditioned samples is the eigensolver's
+    (cuSOLVER's batched float32 eigh lies ~40x farther from the float64
+    solve than LAPACK's here, ``chip_probes/f_degenerate_samples.py``):
+    each hypothesis's distance from the float64 solve of its sample (unit
+    norm, up to sign; 7pt: the nearest of the sample's float64 roots) and
+    its residual on its sample, percentiles 50 / 90, on both devices.
+    Returns (record, failures)."""
+    fails = []
+    log_c, log_p = logs
+    nb = min(len(log_c), len(log_p))
+    same = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+               for a, b in zip(log_c[:nb], log_p[:nb]))
+    fam = (robust.fundamental_8pt_family() if name.endswith("8pt")
+           else robust.fundamental_7pt_family())
+    s1, s2 = (torch.cat([b[i] for b in log_p[:nb]]) for i in (0, 1))
+    M64, v64 = fam.solve(s1.double(), s2.double())
+    (Mc, vc), (Mp, vp) = ((torch.cat([b[2] for b in lg[:nb]]),
+                           torch.cat([b[3] for b in lg[:nb]]))
+                          for lg in (log_c, log_p))
+    S, m = vp.shape
+    ref, v64 = _unit_models(M64).reshape(S, m, 9), v64.numpy()
+
+    def dist(M, v):
+        """Per valid model: the distance to the nearest valid float64
+        model of its sample (7pt: a sample's roots come in any order)."""
+        U = _unit_models(M).reshape(S, m, 9)
+        d = np.minimum(
+            np.linalg.norm(U[:, :, None] - ref[:, None], axis=-1),
+            np.linalg.norm(U[:, :, None] + ref[:, None], axis=-1))
+        d = np.where(v64[:, None, :], d, np.inf).min(axis=-1)
+        return d[v.numpy() & v64.any(axis=1)[:, None]]
+
+    def pct(x):
+        return [float(np.percentile(x, q)) for q in (50, 90)]
+
+    x1, x2, mask, _ = inp_cpu
+    err = robust._sampson_family_error(res.model.cpu()[None], x1, x2)[0]
+    rescored = (err < res.threshold.cpu()) & mask.to(torch.bool)
+    rec = {"batches": [len(log_c), len(log_p)], "same_samples": same,
+           "hypotheses": [int(vc.sum()), int(vp.sum())],
+           "card_vs_f64": pct(dist(Mc, vc)), "cpu_vs_f64": pct(dist(Mp, vp)),
+           "residual_card": pct(_sample_residuals(torch, s1, s2, Mc, vc)),
+           "residual_cpu": pct(_sample_residuals(torch, s1, s2, Mp, vp)),
+           "rescored_mask_agree": float(
+               (rescored == res.inlier_mask.cpu()).float().mean())}
+    if not same:
+        fails.append("the card and the CPU drew other samples")
+    if rec["rescored_mask_agree"] < LIB_AGREE:
+        fails.append(f"the card's mask agrees with its model rescored on "
+                     f"the CPU on {rec['rescored_mask_agree']}")
+    if int(res.n_inliers) < LIB_AGREE * int(cpu.n_inliers):
+        fails.append(f"{int(res.n_inliers)} inliers on the card, "
+                     f"{int(cpu.n_inliers)} on the CPU")
+    return rec, fails
+
+
+def library_estimators(torch, dev, corr, K, robust_cfg, seed):
+    """A2 of phase 10: the four library estimators (fundamental 7pt and
+    8pt, rotation-only, no-motion, QDEGSAC) on the flagship's card
+    correspondences, normalized, and on a planted pure rotation, with
+    seeded explicit streams, each on `dev` and on the CPU. The F rows are
+    held sample by sample (``check_f_row``); the others by their masks
+    (>= 99%, no-motion's equal), the rotation models (1e-4), QDEGSAC's
+    decision and its E's pose. Returns ({row: record}, failures)."""
+    from matchinglib_poselib_torch.ops import geometry as geo, robust
+
+    failures = []
+    Kt = torch.from_numpy(K).to(dev)
+    f_mean = float(K[0, 0] + K[1, 1]) / 2.0
+    th_sq = (robust_cfg.threshold_px / f_mean) ** 2
+    rcfg = dataclasses.replace(robust_cfg, check_degeneracy=False)
+    nb, B = rcfg.max_batches, rcfg.batch_hypotheses
+    rng = np.random.default_rng(seed + 50)
+
+    def u(*shape):
+        return torch.from_numpy(rng.random(shape).astype(np.float32))
+
+    streams = {"fundamental_7pt": u(nb, B, 7), "fundamental_8pt":
+               u(nb, B, 8), "rotation": u(nb, B, 2), "nomotion": None,
+               "qdegsac": tuple(u(*s) for s in
+                                robust.qdegsac_sample_shapes(rcfg))}
+
+    def call(name, inp, s):
+        x1, x2, mask, quality = inp
+        if name == "qdegsac":
+            return robust.estimate_essential_qdegsac(
+                x1, x2, mask, quality, rcfg, th_sq, uniforms=s)
+        if name == "nomotion":
+            return robust.estimate_nomotion_robust(x1, x2, mask, quality,
+                                                   rcfg, th_sq)
+        if name == "rotation":
+            return robust.estimate_rotation_robust(
+                x1, x2, mask, quality, rcfg, th_sq, uniforms=s)
+        return robust.estimate_fundamental_robust(
+            x1, x2, mask, quality, rcfg, th_sq,
+            use_8pt=name.endswith("8pt"), uniforms=s)
+
+    def to(x, device):
+        if x is None:
+            return None
+        if isinstance(x, tuple):
+            return tuple(to(a, device) for a in x)
+        return x.to(device)
+
+    flag = (geo.img_to_cam(corr.pts1, Kt), geo.img_to_cam(corr.pts2, Kt),
+            corr.mask, corr.quality)
+    p1, p2 = planted_rotation(seed + 51)
+    planted = tuple(torch.from_numpy(a).to(dev) for a in (p1, p2)) + (
+        torch.ones(len(p1), dtype=torch.bool, device=dev), None)
+    recs = {}
+    for set_name, inp in (("flagship", flag), ("pure_rotation", planted)):
+        inp_cpu = to(inp, "cpu")
+        for name, s in streams.items():
+            row = f"{name} / {set_name}"
+            rec = {}
+            if set_name == "flagship":
+                _, rec = _lib_timed(torch, dev, lambda: call(
+                    name, inp, to(s, dev)))
+            if name.startswith("fundamental"):
+                fam_name = name + "_family"
+                logs = ([], [])
+                orig = getattr(robust, fam_name)
+                try:
+                    setattr(robust, fam_name, _recording(orig, logs[0]))
+                    res = call(name, inp, to(s, dev))
+                    setattr(robust, fam_name, _recording(orig, logs[1]))
+                    cpu = call(name, inp_cpu, s)
+                finally:
+                    setattr(robust, fam_name, orig)
+                rec["samples"], fails = check_f_row(torch, robust, name,
+                                                    logs, res, cpu, inp_cpu)
+                failures.extend(f"{row}: {f}" for f in fails)
+            else:
+                res, cpu = call(name, inp, to(s, dev)), call(name, inp_cpu, s)
+            q_card, q_cpu = (r.result if name == "qdegsac" else r
+                             for r in (res, cpu))
+            m_c = q_card.inlier_mask.cpu().numpy()
+            m_p = q_cpu.inlier_mask.cpu().numpy()
+            rec["n_inliers"] = int(q_card.n_inliers)
+            rec["n_inliers_cpu"] = int(q_cpu.n_inliers)
+            rec["mask_agree"] = float((m_c == m_p).mean())
+            if name == "nomotion":
+                if not np.array_equal(m_c, m_p):
+                    failures.append(f"{row}: masks not equal")
+            elif not name.startswith("fundamental") \
+                    and rec["mask_agree"] < LIB_AGREE:
+                failures.append(f"{row}: inlier masks agree on "
+                                f"{rec['mask_agree']}")
+            if name == "qdegsac":
+                rec["is_degenerate"] = bool(res.is_degenerate)
+                rec["rot_fraction"] = float(res.rot_fraction)
+                rec["rot_fraction_cpu"] = float(cpu.rot_fraction)
+                rec["F_mask_agree"] = float((
+                    res.F_result.inlier_mask.cpu()
+                    == cpu.F_result.inlier_mask).float().mean())
+                if rec["is_degenerate"] != bool(cpu.is_degenerate):
+                    failures.append(f"{row}: is_degenerate "
+                                    f"{rec['is_degenerate']} on the card, "
+                                    f"{bool(cpu.is_degenerate)} on the CPU")
+                if set_name == "pure_rotation" and not rec["is_degenerate"]:
+                    failures.append(f"{row}: the planted pure rotation is "
+                                    f"not degenerate ({rec['rot_fraction']})")
+                if not rec["is_degenerate"]:
+                    # E: the poses it gives, as phase 4d holds them
+                    x1c, x2c = inp_cpu[:2]
+                    Rc, tc, *_ = geo.recover_pose(
+                        q_card.model.cpu(), x1c, x2c,
+                        q_card.inlier_mask.cpu().float())
+                    Rp, tp, *_ = geo.recover_pose(q_cpu.model, x1c, x2c,
+                                                  q_cpu.inlier_mask.float())
+                    rec["card_vs_cpu_deg"] = [_rot_deg(Rc, Rp),
+                                              _dir_deg(tc, tp)]
+                    if not (rec["card_vs_cpu_deg"][0] < POSE_ROT_DEG
+                            and rec["card_vs_cpu_deg"][1] < POSE_TANG_DEG):
+                        failures.append(f"{row}: E's pose card vs CPU "
+                                        f"{rec['card_vs_cpu_deg']} deg")
+            if name in ("rotation", "fundamental_7pt", "fundamental_8pt"):
+                rec["model_max_abs_diff"] = float(np.abs(
+                    _unit_models(res.model.cpu().numpy())
+                    - _unit_models(cpu.model.numpy())).max())
+            if name == "rotation" and rec["model_max_abs_diff"] \
+                    > LIB_MODEL_ATOL:
+                failures.append(f"{row}: R {rec['model_max_abs_diff']} off "
+                                "the CPU's")
+            recs[row] = rec
+    return recs, failures
+
+
+def _flow_card_vs_cpu(fl, fl_cpu):
+    d = (fl.pts.cpu() - fl_cpu.pts).abs().amax(dim=1).numpy()
+    st = (fl.status.cpu() == fl_cpu.status).float().mean().item()
+    return float((d <= FLOW_ATOL_PX).mean()), st, float(d.max())
+
+
+def _near_ties(d_best, d_second, r2=None):
+    """Slots where the plain version's top-2 gap, or (with a radius) the
+    best distance's distance from r^2, is within NEAR_TIE_PX2."""
+    tie = (d_second - d_best) <= NEAR_TIE_PX2
+    if r2 is not None:
+        tie = tie | ((d_best - r2).abs() <= NEAR_TIE_PX2)
+    return tie
+
+
+def library_flow(torch, dev, seed, det, desc):
+    """A3 of phase 10: LK flow on the left image of frame 1 against the
+    same image shifted by LK_SHIFT (the JAX test's bar), then LKOF and
+    ALKOF between the left images of frames 1 and 2, each on `dev` and on
+    the CPU, and K2b against its plain version at D = 2 on the LK
+    predictions and the next keypoints. Returns (record, failures)."""
+    from scipy.ndimage import shift as nd_shift
+
+    from matchinglib_poselib_torch.ops import features, kernels, optflow
+    from matchinglib_poselib_torch.ops.kernels import knn2
+
+    failures = []
+    rec = {}
+    pairs = _sequence(seed)[0]
+    left1, left2 = pairs[0][0], pairs[1][0]
+    planted = nd_shift(left1, (LK_SHIFT[1], LK_SHIFT[0]), order=1,
+                       mode="nearest").astype(np.float32)
+    imgs = {k: torch.from_numpy(v).to(dev) for k, v in
+            (("l1", left1), ("l2", left2), ("shift", planted))}
+    bands = features.detector_bands(det)
+    kp1 = features.detect_keypoints(imgs["l1"], det)
+    kp2 = features.detect_keypoints(imgs["l2"], det)
+    d1, _ = features.compute_descriptors(imgs["l1"], kp1, desc, bands)
+    d2, _ = features.compute_descriptors(imgs["l2"], kp2, desc, bands)
+
+    def cpu(*xs):
+        return [x.cpu() for x in xs]
+
+    # the planted shift
+    fl, rec["lk_flow"] = _lib_timed(torch, dev, lambda: optflow.lk_flow(
+        imgs["l1"], imgs["shift"], kp1.xy, kp1.mask))
+    fl_cpu = optflow.lk_flow(*cpu(imgs["l1"], imgs["shift"], kp1.xy,
+                                  kp1.mask))
+    st = fl.status.cpu().numpy()
+    valid = kp1.mask.cpu().numpy()
+    err = np.abs(fl.pts.cpu().numpy()[st] - (kp1.xy.cpu().numpy()[st]
+                                             + np.asarray(LK_SHIFT)))
+    rec["lk_flow"].update(
+        points=int(valid.sum()), status_share=float(st.sum() / valid.sum()),
+        median_err_px=float(np.median(err)))
+    rec["lk_flow"]["card_vs_cpu"] = _flow_card_vs_cpu(fl, fl_cpu)
+    if not (rec["lk_flow"]["status_share"] >= LK_STATUS_SHARE
+            and rec["lk_flow"]["median_err_px"] < LK_MEDIAN_ERR_PX):
+        failures.append(f"lk_flow planted shift: status "
+                        f"{rec['lk_flow']['status_share']}, median error "
+                        f"{rec['lk_flow']['median_err_px']} px")
+
+    # frames 1 -> 2: the flow, LKOF, ALKOF, card vs CPU
+    fl = optflow.lk_flow(imgs["l1"], imgs["l2"], kp1.xy, kp1.mask)
+    fl_cpu = optflow.lk_flow(*cpu(imgs["l1"], imgs["l2"], kp1.xy, kp1.mask))
+    rec["flow_frames_1_2"] = {
+        "status_share": float(fl.status.sum() / kp1.mask.sum()),
+        "card_vs_cpu": _flow_card_vs_cpu(fl, fl_cpu)}
+    for key in ("lk_flow", "flow_frames_1_2"):
+        share, st_agree, _ = rec[key]["card_vs_cpu"]
+        if share < LIB_AGREE or st_agree < LIB_AGREE:
+            failures.append(f"{key}: card vs CPU flow within "
+                            f"{FLOW_ATOL_PX} px on {share}, status equal on "
+                            f"{st_agree}")
+    lkof_args = (kp1.xy, kp2.xy, kp1.mask, kp2.mask, imgs["l1"], imgs["l2"])
+    alkof_args = (kp1.xy, kp2.xy, d1, d2, kp1.mask, kp2.mask, imgs["l1"],
+                  imgs["l2"])
+    for name, fn, args, kw in (
+            ("match_lkof", optflow.match_lkof, lkof_args,
+             dict(search_radius=LKOF_RADIUS)),
+            ("match_alkof", optflow.match_alkof, alkof_args,
+             dict(search_radius=LKOF_RADIUS, max_hamm=ALKOF_MAX_HAMM))):
+        kernels.reset_launch_counts()
+        res = fn(*args, **kw)
+        _sync(torch, dev)
+        launches = kernels.launch_counts()
+        _, r = _lib_timed(torch, dev, lambda: fn(*args, **kw))
+        r["launches"] = launches
+        res_cpu = fn(*cpu(*args), **kw)
+        mc, mp = res.mask.cpu(), res_cpu.mask
+        both = mc & mp
+        same = res.idx.cpu() == res_cpu.idx
+        if name == "match_lkof":
+            tie = _near_ties(res_cpu.distance, res_cpu.second_distance,
+                             LKOF_RADIUS ** 2)
+            r["near_tie_slots"] = int((both & tie).sum())
+            both = both & ~tie
+        r.update(kept=int(mc.sum()), kept_cpu=int(mp.sum()),
+                 mask_agree=float((mc == mp).float().mean()),
+                 idx_agree=float(same[both].float().mean()))
+        want = {"knn2_l2": 1, "knn2": 0, "fast_nms": 0} \
+            if name == "match_lkof" else {"knn2": 1, "knn2_l2": 0,
+                                          "fast_nms": 0}
+        if dev.type == "cuda" and launches != want:
+            failures.append(f"{name}: launches {launches}, expected {want}")
+        if r["mask_agree"] < LIB_AGREE or r["idx_agree"] < LIB_AGREE \
+                or r["kept"] < MIN_INLIERS:
+            failures.append(f"{name}: {r['kept']} kept, masks agree on "
+                            f"{r['mask_agree']}, idx on {r['idx_agree']}")
+        rec[name] = r
+
+    # K2b at D = 2 on the LK predictions against the next keypoints
+    a, b, v2 = fl.pts.contiguous(), kp2.xy.contiguous(), kp2.mask
+    got = knn2.knn2_l2(a, b, v2)
+    want = knn2.knn2_l2_plain(a, b, v2)
+    _sync(torch, dev)
+    scale = ((a * a).sum(1) + (b * b).sum(1).max()) * 8 * F32_EPS
+    bad = int(((got[0] - want[0]).abs() > scale).sum()
+              + ((got[1] - want[1]).abs() > scale).sum())
+    tie = _near_ties(want[0], want[1])
+    rec["k2b_d2_coords"] = {
+        "shape": [a.shape[0], b.shape[0], 2],
+        "max_abs_err": float((got[0] - want[0]).abs().max()),
+        "near_tie_slots": int(tie.sum()),
+        "idx_mismatch_outside_ties": int(((got[2] != want[2]) & ~tie)
+                                         .sum())}
+    if bad or rec["k2b_d2_coords"]["idx_mismatch_outside_ties"]:
+        failures.append(f"knn2_l2 D=2 on LK coordinates: {bad} distances "
+                        f"beyond 8 ulps of |a|^2 + |b|^2, "
+                        f"{rec['k2b_d2_coords']['idx_mismatch_outside_ties']}"
+                        " idx mismatches outside near ties")
+    return rec, failures
+
+
+def library_apps(torch, dev, seed):
+    """A4 of phase 10: ``MatchingPoselibNode`` on frames 1-3 of the
+    sequence, plain and with stereoRef + evStepStereoStable = 2, each pose
+    within the accuracy bars and the CPU's replay of the node from the
+    card's correspondences within phase 4d's bars with the same republish
+    pattern (seeded streams through ``apps.common``); ``entry()``'s step
+    on `dev` under ``utils.profiling.trace``; the example on the frames
+    as PNGs. Returns (record, failures)."""
+    import pathlib
+    import tempfile
+    import types
+
+    from matchinglib_poselib_torch import entry
+    from matchinglib_poselib_torch.apps import common, ros_interface
+    from matchinglib_poselib_torch.examples import match_and_pose
+    from matchinglib_poselib_torch.models import pipeline
+    from matchinglib_poselib_torch.ops import kernels, robust
+    from matchinglib_poselib_torch.utils import profiling
+    from matchinglib_poselib_torch.utils.profiling import HostSyncs
+
+    failures = []
+    rec = {}
+    pairs, K, R_true, t_true = _sequence(seed)
+    frames = pairs[:APP_FRAMES]
+    get_corr = pipeline.get_correspondences
+    saved = common.frame_streams, common.stereo_refine_streams
+    common.frame_streams = lambda i, cfg: pose_streams(
+        torch, robust, cfg, seed + 300 + i)
+    common.stereo_refine_streams = lambda cfg: SeededStreams(
+        torch, cfg.pose.robust, seed + 400)
+    try:
+        for name, extra in (("node", {}), ("node_stereoRef", NODE_STEREO)):
+            params = dict(NODE_PARAMS, **extra)
+            recorded = []
+
+            def record(*a, **kw):
+                c = get_corr(*a, **kw)
+                recorded.append(c)
+                return c
+
+            def run(device):
+                node = ros_interface.MatchingPoselibNode(params,
+                                                         device=device)
+                node.set_calibration(K, K, np.zeros(5), np.zeros(5))
+                msgs, ms = [], []
+                for img1, img2 in frames:
+                    t0 = time.perf_counter()
+                    msgs.append(node.handle_stereo_pair(img1, img2))
+                    _sync(torch, node.device)
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                return msgs, ms
+
+            pipeline.get_correspondences = record
+            kernels.reset_launch_counts()
+            s0 = HostSyncs.count
+            msgs, ms = run(dev)
+            r = {"ms_per_frame": ms, "launches": kernels.launch_counts(),
+                 "host_syncs_per_frame": (HostSyncs.count - s0) / len(ms)}
+            # the CPU node, fed the card's correspondences
+            replay = iter(recorded)
+
+            def replayed(*a, **kw):
+                c = next(replay)
+                return types.SimpleNamespace(
+                    pts1=c.pts1.cpu(), pts2=c.pts2.cpu(), mask=c.mask.cpu(),
+                    quality=c.quality.cpu())
+
+            pipeline.get_correspondences = replayed
+            msgs_cpu, _ = run("cpu")
+            pipeline.get_correspondences = get_corr
+            pattern = [i > 0 and msgs[i] is msgs[i - 1]
+                       for i in range(len(msgs))]
+            pattern_cpu = [i > 0 and msgs_cpu[i] is msgs_cpu[i - 1]
+                           for i in range(len(msgs))]
+            r["republished"] = pattern
+            r["err_deg"] = [[_rot_deg(m.R, R_true), _dir_deg(m.t, t_true)]
+                            for m in msgs]
+            r["card_vs_cpu_deg"] = [[_rot_deg(m.R, c.R), _dir_deg(m.t, c.t)]
+                                    for m, c in zip(msgs, msgs_cpu)]
+            r["n_inliers"] = [m.n_inliers for m in msgs]
+            r["pose_is_stable"] = [m.pose_is_stable for m in msgs]
+            if pattern != pattern_cpu:
+                failures.append(f"{name}: republished {pattern} on the "
+                                f"card, {pattern_cpu} on the CPU")
+            for i, ((re, te), (rc, tc)) in enumerate(zip(
+                    r["err_deg"], r["card_vs_cpu_deg"])):
+                if not (re < MAX_ROT_DEG and te < MAX_TANG_DEG):
+                    failures.append(f"{name} frame {i + 1}: {re} / {te} "
+                                    "deg against the planted pose")
+                if not (rc < POSE_ROT_DEG and tc < POSE_TANG_DEG):
+                    failures.append(f"{name} frame {i + 1}: card vs CPU "
+                                    f"{rc} / {tc} deg")
+            n_eval = len(msgs) - sum(pattern)
+            if dev.type == "cuda" and r["launches"] != {
+                    "fast_nms": 2 * n_eval, "knn2": 2 * n_eval,
+                    "knn2_l2": 0}:
+                failures.append(f"{name}: launches {r['launches']} over "
+                                f"{n_eval} evaluated frames")
+            rec[name] = r
+    finally:
+        pipeline.get_correspondences = get_corr
+        common.frame_streams, common.stereo_refine_streams = saved
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        # entry()'s step once, under trace()
+        fn, args = entry.entry(device=dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with profiling.trace(str(tmp / "trace")):
+            R, t, n_inl, n_corr = fn(*args)
+            _sync(torch, dev)
+        traces = [p for p in (tmp / "trace").glob("*.json")
+                  if p.stat().st_size > 0]
+        rec["entry"] = {"wall_ms_traced": (time.perf_counter() - t0) * 1e3,
+                        "launches": kernels.launch_counts(),
+                        "n_corr": int(n_corr), "n_inliers": int(n_inl),
+                        "trace_files": len(traces),
+                        "trace_bytes": sum(p.stat().st_size
+                                           for p in traces)}
+        if not traces:
+            failures.append("trace(): no trace file written")
+        if not (bool(torch.isfinite(R).all()) and R.shape == (3, 3)):
+            failures.append("entry(): R not a finite 3x3")
+        if dev.type == "cuda" and rec["entry"]["launches"]["fast_nms"] != 2:
+            failures.append(f"entry(): launches {rec['entry']['launches']}")
+        # the example on the frames as PNGs
+        d = tmp / "imgs"
+        write_stereo_dir(d, frames, K, R_true, t_true)
+        lines, wall, launches, syncs = _cli(torch, match_and_pose.main,
+                                            [str(d)], device=dev)
+        n_matches = int(lines[0].split()[0])
+        n_inl = int(lines[-1].split()[0])
+        rec["example"] = {"wall_s": wall, "launches": launches,
+                          "host_syncs": syncs, "n_matches": n_matches,
+                          "n_inliers": n_inl}
+        if n_matches < MIN_CORR or n_inl < MIN_INLIERS:
+            failures.append(f"example: {n_matches} matches, {n_inl} "
+                            "inliers")
+        if dev.type == "cuda" and launches != {"fast_nms": 2, "knn2": 2,
+                                               "knn2_l2": 0}:
+            failures.append(f"example: launches {launches}")
+    return rec, failures
+
+
+def library_kernel_checks(torch, knn2, seed, dev, n_sm):
+    """Phase 10's kernel checks: K2b against its plain version at
+    ``KNN2_L2_RAGGED`` x D = 2 and 3 (``knn2_l2_ragged_cases``), and its
+    times at 2048 x 2048 x 2 on pixel coordinates of the scene's size
+    beside the plain version's. Returns a record."""
+    err = check_knn2_l2_ragged(torch, knn2, knn2_l2_ragged_cases(
+        torch, np.random.default_rng(seed + 60), dev, depths=LIB_L2_DEPTHS))
+    rng = np.random.default_rng(seed + 61)
+    n = 2048
+    a, b = (torch.from_numpy(np.stack(
+        [rng.uniform(0, WIDTH, n), rng.uniform(0, HEIGHT, n)], axis=1)
+        .astype(np.float32)).to(dev) for _ in range(2))
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    fk = functools.partial(knn2.knn2_l2, a, b, valid)
+    fp = functools.partial(knn2.knn2_l2_plain, a, b, valid)
+    rec = {"max_abs_err_ragged": err, "shape": [n, n, 2],
+           "ms": _cuda_ms(torch, fk), "plain_ms": _cuda_ms(torch, fp)}
+    rec["device_ms"], rec["kernels_per_call"] = _device_profile(torch, fk)
+    rec["plain_device_ms"] = _device_ms(torch, fp)
+    # the work at D = 2: the product's 2 D flops, the norms' and the
+    # top-2 epilogue's 4 per pair (the kernel's zero-filled depths are not
+    # work); the gate's 5 per pair for a guided call
+    ops_s = (2 * n * n * 2 + 2 * 2 * n * 2 + 4 * n * n) / FP32_FLOP_S
+    nbytes = 2 * n * 2 * 4 + n + n * 12
+    rec["bound_ms"], rec["bound_by"] = _bound(nbytes, ops_s)
+    rec["bound_ms_guided"] = _bound(nbytes, ops_s + n * n
+                                    * KNN2_L2_GATE_FP32_OPS
+                                    / (FP32_PER_CLK_SM * n_sm
+                                       * SM_CLOCK_HZ))[0]
+    if rec["kernels_per_call"] != 1:
+        raise AssertionError(f"knn2_l2 D=2: {rec['kernels_per_call']} "
+                             "kernels per call, not 1")
+    return rec
+
+
+def library_phase(torch, dev, seed, det, desc, match, robust_cfg):
+    """Phase 10: the library layer (A2 estimators, A3 optical flow, A4 the
+    node, the entry point, the example and trace). Returns (records by
+    part, failures, wall s)."""
+    from matchinglib_poselib_torch.models import pipeline
+
+    t_phase = time.perf_counter()
+    img1, img2, K, _, _ = render_scene(seed)
+    corr = pipeline.get_correspondences(torch.from_numpy(img1).to(dev),
+                                        torch.from_numpy(img2).to(dev),
+                                        det, desc, match)
+    out, failures = {}, []
+    for part, fn in (
+            ("estimators", lambda: library_estimators(
+                torch, dev, corr, K, robust_cfg, seed)),
+            ("flow", lambda: library_flow(torch, dev, seed, det, desc)),
+            ("apps", lambda: library_apps(torch, dev, seed))):
+        t0 = time.perf_counter()
+        out[part], fails = fn()
+        out[part + "_s"] = time.perf_counter() - t0
+        failures.extend(f"library {part}: {f}" for f in fails)
+    return out, failures, time.perf_counter() - t_phase
+
+
 def _bound(bytes_moved, time_ops):
     """(bound ms, what bounds it): the larger of the bytes over the HBM
     rate and the operation time."""
@@ -3019,6 +3698,29 @@ def main(argv=None) -> int:
                       "card": smi}))
     print(json.dumps({"phase_9_s": time.perf_counter() - t_phase9,
                       "card": smi}))
+    # 10. the library layer: K2b at D = 2 and 3, the estimators, LK flow
+    # with LKOF / ALKOF, the node, entry(), the example and trace()
+    k2b_d2 = library_kernel_checks(torch, knn2, args.seed, dev, n_sm)
+    lib, fails, lib_s = library_phase(torch, dev, args.seed, det, desc,
+                                      match, pose_cfg.robust)
+    failures.extend(fails)
+    for row, rec in lib["estimators"].items():
+        print(json.dumps({"library": row, "card": smi, **rec}))
+    for row in ("lk_flow", "flow_frames_1_2", "match_lkof", "match_alkof",
+                "k2b_d2_coords"):
+        print(json.dumps({"library": row, "card": smi, **lib["flow"][row]}))
+    for row in ("node", "node_stereoRef", "entry", "example"):
+        print(json.dumps({"library": row, "card": smi, **lib["apps"][row]}))
+    print(json.dumps({"phase_10_s": lib_s, "card": smi, **{
+        k: lib[k] for k in ("estimators_s", "flow_s", "apps_s")}}))
+
+    def lib_launches(name):
+        apps = lib["apps"]
+        out = {row: apps[row]["launches"][name]
+               for row in ("node", "node_stereoRef", "entry", "example")}
+        for row in ("match_lkof", "match_alkof"):
+            out[row] = lib["flow"][row]["launches"][name]
+        return out
     for c_name, rec in steps:
         agree = rec.get("cpu_agree")
         if agree and min(agree.values()) < 0.99:
@@ -3088,6 +3790,7 @@ def main(argv=None) -> int:
          "launches_frontend_batch": fe_batch_launches("fast_nms"),
          "launches_frontend_cli":
              fe_extra["matchinglib_test_akaze"]["launches"]["fast_nms"],
+         "launches_library": lib_launches("fast_nms"),
          "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
          "bound_pipe": k1_pipe if k1_bound[1] == "operations" else "memory",
@@ -3114,6 +3817,7 @@ def main(argv=None) -> int:
          "launches_frontend_batch": fe_batch_launches("knn2"),
          "launches_frontend_cli":
              fe_extra["matchinglib_test_akaze"]["launches"]["knn2"],
+         "launches_library": lib_launches("knn2"),
          "max_abs_err_16w": k2a16["max_abs_err"],
          "shape_16w": k2a16["shape"],
          "ms_16w": k2a16["ms"], "plain_ms_16w": k2a16["plain_ms"],
@@ -3139,7 +3843,8 @@ def main(argv=None) -> int:
          "source": "matchinglib_poselib_torch/csrc/knn2_l2.cu",
          "replaces": "matchinglib_poselib_tpu/ops/pallas/knn.py:51",
          "launches": sift_launches["knn2_l2"],
-         "max_abs_err": max(k2b_err, k2a16["k2b_max_abs_err"]),
+         "max_abs_err": max(k2b_err, k2a16["k2b_max_abs_err"],
+                            k2b_d2["max_abs_err_ragged"]),
          "launches_batch": batch_rec["launches"]["knn2_l2"],
          "launches_match_menu": {k: v["knn2_l2"]
                                  for k, v in match_launches.items()},
@@ -3149,6 +3854,8 @@ def main(argv=None) -> int:
          "launches_apps": {k: v["knn2_l2"] for k, v in apps_launches.items()},
          "launches_frontend": fe_launches("knn2_l2"),
          "launches_frontend_batch": fe_batch_launches("knn2_l2"),
+         "launches_library": lib_launches("knn2_l2"),
+         "d2": {**k2b_d2, "lk_coordinates": lib["flow"]["k2b_d2_coords"]},
          "ms": k2b["sift"][0]["ms"], "plain_ms": k2b["sift"][0]["plain_ms"],
          "device_ms": k2b["sift"][0]["device_ms"],
          "plain_device_ms": k2b["sift"][0]["plain_device_ms"],

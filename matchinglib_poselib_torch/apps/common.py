@@ -239,13 +239,15 @@ def stereo_refine_config(args, pose: PoseConfig,
     )
 
 
-def cli_device(device: torch.device | str) -> torch.device:
-    """The device a CLI runs on: the card unless the caller asks for the
-    CPU; a CUDA device without a card raises (no fallback to the CPU)."""
+def cli_device(device: torch.device | str,
+               caller: str = "main") -> torch.device:
+    """The device a CLI (or `caller`) runs on: the card unless the caller
+    asks for the CPU; a CUDA device without a card raises (no fallback to
+    the CPU)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            f"main(device={str(device)!r}): no CUDA device; pass "
+            f"{caller}(device={str(device)!r}): no CUDA device; pass "
             "device='cpu' to run the plain CPU path")
     return device
 

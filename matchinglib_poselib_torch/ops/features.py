@@ -441,6 +441,40 @@ def brief_descriptor_orb(
     return pack_bits(vals[..., 0] < vals[..., 1])
 
 
+def brief_descriptor(patches: torch.Tensor, angles: torch.Tensor,
+                     oriented: bool = True) -> torch.Tensor:
+    """Patch-only steered BRIEF-256 -> (K, 8) int32 words: the pattern
+    rotated by each keypoint's exact angle and sampled bilinearly (the
+    pipeline's ORB rows take ``brief_descriptor_orb``)."""
+    if not oriented:
+        angles = torch.zeros_like(angles)
+    K, P = patches.shape[0], patches.shape[-1]
+    c = (P - 1) / 2.0
+    ca = torch.cos(angles)[:, None]
+    sa = torch.sin(angles)[:, None]
+    pts = torch.from_numpy(brief_pattern().reshape(-1, 2)).to(
+        patches.device)
+    px, py = pts[:, 0][None, :], pts[:, 1][None, :]
+    gx = torch.clamp(c + ca * px - sa * py, 0.0, P - 1.001)  # (K, 512)
+    gy = torch.clamp(c + sa * px + ca * py, 0.0, P - 1.001)
+    x0 = torch.floor(gx).to(torch.int64)
+    y0 = torch.floor(gy).to(torch.int64)
+    fx = gx - x0
+    fy = gy - y0
+    flat = patches.reshape(K, P * P)
+
+    def tk(yy, xx):
+        return torch.gather(flat, 1, yy * P + xx)
+
+    vals = (
+        tk(y0, x0) * (1 - fy) * (1 - fx)
+        + tk(y0, x0 + 1) * (1 - fy) * fx
+        + tk(y0 + 1, x0) * fy * (1 - fx)
+        + tk(y0 + 1, x0 + 1) * fy * fx
+    ).reshape(K, 256, 2)
+    return pack_bits(vals[..., 0] < vals[..., 1])
+
+
 # ---------------------------------------------------------------------------
 # SIFT-like float descriptor
 # ---------------------------------------------------------------------------

@@ -385,6 +385,16 @@ def sof_predict(field: SOFField, pts1: torch.Tensor, cell_px: int):
     return pts1 + lerp(field.flow), lerp(field.radius)
 
 
+def sof_spatial_penalty(field: SOFField, pts1: torch.Tensor,
+                        pts2: torch.Tensor, cell_px: int) -> torch.Tensor:
+    """(N1, N2) penalty: 0 inside each query's predicted circle, 1e9
+    outside — GMbSOF's guided matching in the dense form that
+    ``match_descriptors(spatial_penalty=...)`` takes."""
+    pred, rad = sof_predict(field, pts1, cell_px)
+    d2 = torch.sum((pred[:, None, :] - pts2[None, :, :]) ** 2, dim=-1)
+    return torch.where(d2 <= rad[:, None] ** 2, 0.0, 1e9)
+
+
 def sof_cell_valid_at(field: SOFField, pts: torch.Tensor, cell_px: int):
     """Whether each query point's grid cell validated."""
     gy, gx = field.radius.shape

@@ -1,4 +1,4 @@
-"""Epipolar / camera geometry (port of ``ops/geometry.py``, main-path subset).
+"""Epipolar / camera geometry (port of ``ops/geometry.py``).
 
 Every function is plain tensor arithmetic over arbitrary leading batch
 dims, so the same code serves one pair or a hypothesis batch; variable
@@ -152,6 +152,19 @@ def sampson_error(
     )
 
 
+def symmetric_epipolar_error(E: torch.Tensor, x1: torch.Tensor,
+                             x2: torch.Tensor) -> torch.Tensor:
+    """Symmetric squared distance to the two epipolar lines (..., N)."""
+    num, Ex1, Etx2 = epipolar_products(E, x1, x2)
+    g1 = Ex1[..., 0] ** 2 + Ex1[..., 1] ** 2
+    g2 = Etx2[..., 0] ** 2 + Etx2[..., 1] ** 2
+    d1 = torch.where(g1 > 1e-12, (num * num) / torch.clamp(g1, min=1e-12),
+                     1e9)
+    d2 = torch.where(g2 > 1e-12, (num * num) / torch.clamp(g2, min=1e-12),
+                     1e9)
+    return d1 + d2
+
+
 # ---------------------------------------------------------------------------
 # essential-matrix manifold
 # ---------------------------------------------------------------------------
@@ -226,9 +239,71 @@ def closest_essential_fast(E: torch.Tensor) -> torch.Tensor:
     return E @ gM
 
 
+def essential_residual_stats(E, x1, x2, mask=None):
+    """(mean, median) squared Sampson error over the (masked)
+    correspondences."""
+    err = sampson_error(E, x1, x2)
+    if mask is None:
+        return torch.mean(err, dim=-1), masked_median(err,
+                                                      torch.ones_like(err))
+    m = mask.to(err.dtype)
+    mean = torch.sum(err * m, dim=-1) / torch.clamp(torch.sum(m, dim=-1),
+                                                    min=1.0)
+    return mean, masked_median(err, m)
+
+
+def is_valid_essential(E: torch.Tensor, tol: float = 1e-3) -> torch.Tensor:
+    """Singular-value structure of an essential matrix: s1 ~ s2, s3 ~ 0
+    (pose_helper.cpp:196 validateEssential, simplified)."""
+    s = torch.linalg.svdvals(E)
+    s = s / torch.clamp(s[..., :1], min=1e-12)
+    return ((torch.abs(s[..., 0] - s[..., 1]) < tol * 10.0)
+            & (s[..., 2] < tol * 10.0))
+
+
 # ---------------------------------------------------------------------------
 # rotations / pose comparison
 # ---------------------------------------------------------------------------
+
+
+def quat_from_rot(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> unit quaternion (w, x, y, z), w >= 0.
+
+    Shepperd's four candidates, the one of largest pivot taken (first
+    maximum wins; pose_helper.cpp:861 MatToQuat branches the same way).
+    """
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10,
+                      m02 + m20], dim=-1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22,
+                      m12 + m21], dim=-1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21,
+                      1.0 - m00 - m11 + m22], dim=-1)
+    pivots = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22,
+                          1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22],
+                         dim=-1)
+    case = torch.argmax(pivots, dim=-1)
+    cands = torch.stack([qw, qx, qy, qz], dim=-2)  # (..., 4, 4)
+    q = torch.take_along_dim(cands, case[..., None, None], dim=-2)[..., 0, :]
+    q = q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True),
+                        min=1e-12)
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+
+
+def quat_mult(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of (w, x, y, z) quaternions."""
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dim=-1)
 
 
 def rot_from_quat(q: torch.Tensor) -> torch.Tensor:

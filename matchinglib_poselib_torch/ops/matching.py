@@ -95,6 +95,7 @@ def match_descriptors(
     ratio: float = LOWE_RATIO,
     cross_check: bool = True,
     max_distance: float | None = None,
+    spatial_penalty: torch.Tensor | None = None,
     guide_pred: torch.Tensor | None = None,
     guide_rad: torch.Tensor | None = None,
     pts2_xy: torch.Tensor | None = None,
@@ -108,11 +109,24 @@ def match_descriptors(
     match_statOptFlow.cpp:4410): pass guide_pred (N1, 2), guide_rad (N1,)
     and pts2_xy (N2, 2) to restrict query i's candidates to a circle
     around its predicted position.
+
+    spatial_penalty: (N1, N2) added to the distances (0 inside, +big
+    outside, ``filters.sof_spatial_penalty``), the dense form of the gate.
+    A call with a penalty computes the whole distance matrix on the
+    tensors' device and takes its top-2 there, as the JAX package routes
+    it (its ``use_pallas`` is false whenever a penalty is given); its
+    cross-check takes each column's best row.
     """
     guided = guide_pred is not None
     v1 = valid1.to(torch.bool)
     v2 = valid2.to(torch.bool)
     rad2 = guide_rad * guide_rad if guided else None
+    if spatial_penalty is not None:
+        return _finish(*_dense_top2(desc1, desc2, v1, v2, binary,
+                                    spatial_penalty, guide_pred, rad2,
+                                    pts2_xy),
+                       v1, max_distance, cross_check, ratio_test, ratio,
+                       ratio_fallback)
     if binary:
         search = _knn2.knn2
     else:
@@ -123,20 +137,49 @@ def match_descriptors(
         desc1, desc2, v2, guide_pred, rad2, pts2_xy,
         xy_mode=1 if guided else 0,
     )
-    idx = torch.clamp(idx, min=0)
-    keep = v1 & (d_best < _BIG * 0.5)
-    if max_distance is not None:
-        keep = keep & (d_best <= max_distance)
+    back = None
     if cross_check:
         # backward top-1 under the mirrored gate
         _, _, back = search(
             desc2, desc1, v1, pts2_xy, rad2, guide_pred,
             xy_mode=2 if guided else 0,
         )
-        n1 = desc1.shape[0]
-        keep = keep & (
-            back[idx.long()] == torch.arange(n1, device=desc1.device)
-        )
+    return _finish(d_best, d_second, idx, back, v1, max_distance,
+                   cross_check, ratio_test, ratio, ratio_fallback)
+
+
+def _dense_top2(desc1, desc2, v1, v2, binary, penalty, guide_pred, rad2,
+                pts2_xy):
+    """The dense route: the (N1, N2) distance matrix plus the penalty,
+    the radius gate and the validity masks, its row-wise top-2 (ties to
+    the lowest column) and each column's best row."""
+    if binary:
+        dist = hamming_distance_matrix(desc1, desc2)
+    else:
+        dist = l2_distance_matrix(desc1, desc2)
+    dist = dist + penalty
+    if guide_pred is not None:
+        d2g = torch.sum((guide_pred[:, None, :] - pts2_xy[None, :, :]) ** 2,
+                        dim=-1)
+        dist = torch.where(d2g <= rad2[:, None], dist, dist + _BIG)
+    dist = torch.where(v2[None, :], dist, _BIG)
+    dist = torch.where(v1[:, None], dist, _BIG)
+    d_best, d_second, idx = _top2(dist)
+    return d_best, d_second, idx, torch.argmin(dist, dim=0)
+
+
+def _finish(d_best, d_second, idx, back, v1, max_distance, cross_check,
+            ratio_test, ratio, ratio_fallback) -> MatchResult:
+    """The gates after the search: validity, max distance, the mutual
+    check against `back` (each candidate's best query), the ratio test
+    and its low-texture fallback."""
+    idx = torch.clamp(idx, min=0)
+    keep = v1 & (d_best < _BIG * 0.5)
+    if max_distance is not None:
+        keep = keep & (d_best <= max_distance)
+    if cross_check:
+        keep = keep & (back[idx.long()]
+                       == torch.arange(idx.shape[0], device=idx.device))
     if ratio_test:
         keep_no_ratio = keep
         keep = keep & (d_best < ratio * d_second)
@@ -146,6 +189,14 @@ def match_descriptors(
         idx=idx.to(torch.int32), distance=d_best, second_distance=d_second,
         mask=keep,
     )
+
+
+def gather_matched_points(kp1: torch.Tensor, kp2: torch.Tensor,
+                          result: MatchResult):
+    """(N1, 2) keypoints -> matched coordinate pairs (N1, 2), (N1, 2) and
+    the mask: slot i holds keypoint i and its partner; masked slots carry
+    garbage that every mask-aware consumer ignores."""
+    return kp1, kp2[result.idx.long()], result.mask
 
 
 def estimate_inlier_ratio_from_ratios(result: MatchResult) -> torch.Tensor:

@@ -1,5 +1,4 @@
-"""Batched robust essential-matrix estimation (port of ``ops/robust.py``:
-the default path, LMEDS and AutoTh).
+"""Batched robust model estimation (port of ``ops/robust.py``).
 
 USAC/PROSAC hypothesis batches of a five-point solver (Nister or
 Stewenius) scored densely,
@@ -10,7 +9,10 @@ rotation-only and no-motion families on the E-inliers); LMEDS
 (runLMeDS, modelest.cpp:483) scores by the median residual over every
 batch and classifies with the 2.5 * 1.4826 * sqrt(median) band;
 ``estimate_essential_autoth`` adapts the threshold between rounds of it
-(AutoThEpi).
+(AutoThEpi). The library-only estimators run on the same engine:
+``estimate_fundamental_robust`` (7pt or 8pt), ``estimate_rotation_robust``,
+``estimate_nomotion_robust`` (one dense pass) and QDEGSAC
+(``estimate_essential_qdegsac``).
 
 Pair axis: the default path (``ransac``, LO, the degeneracy check,
 ``estimate_essential_robust``) takes an optional leading pair axis P on
@@ -104,6 +106,48 @@ def homography_family() -> ModelFamily:
                                                  x2[..., None, :, :])
 
     return ModelFamily("homography_4pt", 4, 1, solve, err)
+
+
+def fundamental_7pt_family() -> ModelFamily:
+    """Fundamental-matrix family (usac FundmatrixEstimator): the 7pt
+    minimal solver (3 models per sample) with Sampson scoring."""
+    return ModelFamily("fundamental_7pt", 7, 3, solvers.solve_7pt,
+                       _sampson_family_error)
+
+
+def fundamental_8pt_family() -> ModelFamily:
+    def solve(x1, x2):
+        F, v = solvers.solve_8pt(x1, x2, essential=False)
+        return F[:, None], v[:, None]
+
+    return ModelFamily("fundamental_8pt", 8, 1, solve, _sampson_family_error)
+
+
+def rotation_reproj_error(R, x1, x2):
+    """Squared reprojection error of rotation-only motion (..., M, N).
+
+    R: (..., M, 3, 3); x1, x2: (..., N, 2) normalized coords
+    (RotationMatEstimator.h residual).
+    """
+    b1 = geo.normalize_vec(geo.to_homogeneous(x1))
+    b1r = torch.einsum("...mij,...nj->...mni", R, b1)
+    pr = b1r[..., :2] / torch.clamp(torch.abs(b1r[..., 2:]), min=1e-9) * (
+        torch.sign(b1r[..., 2:]))
+    return torch.sum((pr - x2[..., None, :, :]) ** 2, dim=-1)
+
+
+def rotation_only_family() -> ModelFamily:
+    """Rotation-only family (usac RotationMatEstimator
+    twopt_rotationOnly): the 2pt Horn fit with the rotational
+    reprojection error."""
+
+    def solve(x1, x2):
+        w = torch.ones(x1.shape[:-1], dtype=x1.dtype, device=x1.device)
+        R = rotation_only_model(x1, x2, w)
+        v = torch.all(torch.isfinite(R).flatten(-2), dim=-1)
+        return R[:, None], v[:, None]
+
+    return ModelFamily("rotation_2pt", 2, 1, solve, rotation_reproj_error)
 
 
 class RobustResult(NamedTuple):
@@ -610,6 +654,140 @@ def estimate_essential_robust(
                                    uniforms=degen_uniforms,
                                    generator=generator)
     return res, degen
+
+
+# ---------------------------------------------------------------------------
+# fundamental / rotation-only / no-motion robust estimation + QDEGSAC
+# ---------------------------------------------------------------------------
+
+
+def estimate_fundamental_robust(x1, x2, mask, quality, cfg: RobustConfig,
+                                threshold_sq=None, use_8pt: bool = False,
+                                uniforms=None, generator=None):
+    """Robust fundamental matrix (estimateFundMatrixUsac,
+    usac_estimations.cpp:83): the 7pt minimal solver (3 models per
+    sample), or the 8pt with `use_8pt`. uniforms: (max_batches, B, 7 or
+    8), else drawn from `generator`."""
+    fam = fundamental_8pt_family() if use_8pt else fundamental_7pt_family()
+    return ransac(fam, x1, x2, mask, quality, cfg, threshold_sq,
+                  uniforms=uniforms, generator=generator)
+
+
+def estimate_nomotion_robust(x1, x2, mask, quality, cfg: RobustConfig,
+                             threshold_sq=None) -> RobustResult:
+    """No-motion estimation (usac NoMotionEstimator.h): the hypothesis
+    space holds one model, the identity motion, whose support is every
+    correspondence displaced by less than the threshold; one dense
+    scoring pass, no sampling. `quality` is accepted for the menu's
+    signature and unused."""
+    del quality
+    dt, dev = x1.dtype, x1.device
+    if threshold_sq is None:
+        threshold_sq = cfg.threshold_px ** 2
+    th = torch.as_tensor(threshold_sq, dtype=dt, device=dev)
+    maskb = mask.to(torch.bool)
+    err = torch.sum((x2 - x1) ** 2, dim=-1)
+    inl = (err < th) & maskb
+    n_inl = torch.sum(inl, dim=-1)
+    n_valid = torch.clamp(torch.sum(mask.to(torch.float32), dim=-1),
+                          min=1.0)
+
+    def count(v):
+        return torch.full(n_inl.shape, v, dtype=torch.int64, device=dev)
+
+    return RobustResult(
+        model=torch.eye(3, dtype=dt, device=dev).expand(
+            x1.shape[:-2] + (3, 3)),
+        inlier_mask=inl,
+        n_inliers=n_inl,
+        inlier_ratio=n_inl.to(torch.float32) / n_valid,
+        # MSAC-style score, comparable with the other families'
+        score=torch.sum(torch.where(inl, th - err, 0.0), dim=-1),
+        threshold=th,
+        n_batches=count(1),
+        n_hypotheses=count(1),
+        n_models_generated=count(1),
+        n_models_rejected=count(0),
+        n_points_verified=torch.sum(mask.to(torch.int64), dim=-1),
+        n_lo_refinements=count(0),
+    )
+
+
+def estimate_rotation_robust(x1, x2, mask, quality, cfg: RobustConfig,
+                             threshold_sq=None, uniforms=None,
+                             generator=None) -> RobustResult:
+    """Robust rotation-only estimation (estimateRotationMatUsac,
+    usac_estimations.cpp:736): 2pt Horn hypotheses, then a Horn re-fit on
+    the final inliers that replaces the RANSAC model only on a strict
+    gain of inliers with a finite model. uniforms: (max_batches, B, 2),
+    else drawn from `generator`."""
+    res = ransac(rotation_only_family(), x1, x2, mask, quality, cfg,
+                 threshold_sq, uniforms=uniforms, generator=generator)
+    R_fit = rotation_only_model(x1, x2, res.inlier_mask.to(x1.dtype))
+    err = rotation_reproj_error(R_fit[..., None, :, :], x1, x2)[..., 0, :]
+    inl = (err < res.threshold[..., None]) & mask.to(torch.bool)
+    n_new = torch.sum(inl, dim=-1)
+    # a rank-deficient all-points fit never displaces the RANSAC model on
+    # a 0-0 tie
+    better = ((n_new > res.n_inliers) & (n_new > 0)
+              & torch.all(torch.isfinite(R_fit).flatten(-2), dim=-1))
+    n_valid = torch.clamp(torch.sum(mask.to(torch.float32), dim=-1),
+                          min=1.0)
+    return res._replace(
+        model=torch.where(better[..., None, None], R_fit, res.model),
+        inlier_mask=torch.where(better[..., None], inl, res.inlier_mask),
+        n_inliers=torch.where(better, n_new, res.n_inliers),
+        inlier_ratio=torch.where(better, n_new.to(torch.float32) / n_valid,
+                                 res.inlier_ratio),
+    )
+
+
+class QdegsacResult(NamedTuple):
+    result: RobustResult  # the E estimate (valid when not degenerate)
+    F_result: RobustResult  # the unconstrained epipolar-geometry estimate
+    R_result: RobustResult  # rotation-only estimate on the F-inliers
+    is_degenerate: torch.Tensor  # bool: the scene is rotation-dominated
+    rot_fraction: torch.Tensor  # rotation-explained share of F-inliers
+
+
+def qdegsac_sample_shapes(cfg: RobustConfig):
+    """Shapes of QDEGSAC's three streams, in the order the stages draw
+    them: F (7pt), rotation (2pt), E (``sample_shapes``)."""
+    nb, B = cfg.max_batches, cfg.batch_hypotheses
+    return (nb, B, 7), (nb, B, 2), sample_shapes(cfg)[0]
+
+
+def estimate_essential_qdegsac(x1, x2, mask, quality, cfg: RobustConfig,
+                               threshold_sq=None, uniforms=None,
+                               generator=None) -> QdegsacResult:
+    """QDEGSAC: robust F on the full set, robust rotation-only on the
+    F-inliers, the degeneracy decision, then E on the F-inliers
+    (estimateEssentialQDEGSAC, usac_estimations.cpp:1162, as dispatched by
+    pose_estim.cpp:1983-2130). Rotation-degenerate when the rotation model
+    explains more than ``cfg.degen_decision_ratio`` of the F-inliers.
+
+    uniforms: (F, rotation, E) streams of ``qdegsac_sample_shapes`` — the
+    JAX package's ``split(key, 3)`` order — else each drawn from
+    `generator` as its stage starts.
+    """
+    u_f, u_r, u_e = uniforms if uniforms is not None else (None,) * 3
+    fcfg = dataclasses.replace(cfg, check_degeneracy=False, lo_refine=False)
+    fres = ransac(fundamental_7pt_family(), x1, x2, mask, quality, fcfg,
+                  threshold_sq, uniforms=u_f, generator=generator)
+    rres = estimate_rotation_robust(x1, x2, fres.inlier_mask, quality, fcfg,
+                                    threshold_sq, uniforms=u_r,
+                                    generator=generator)
+    rot_frac = rres.n_inliers.to(torch.float32) / torch.clamp(
+        fres.n_inliers.to(torch.float32), min=1.0)
+    eres, _ = estimate_essential_robust(
+        x1, x2, fres.inlier_mask, quality,
+        dataclasses.replace(cfg, check_degeneracy=False), threshold_sq,
+        uniforms=u_e, generator=generator)
+    return QdegsacResult(
+        result=eres, F_result=fres, R_result=rres,
+        is_degenerate=rot_frac > cfg.degen_decision_ratio,
+        rot_fraction=rot_frac,
+    )
 
 
 # ---------------------------------------------------------------------------

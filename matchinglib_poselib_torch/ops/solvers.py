@@ -1,5 +1,4 @@
-"""Batched minimal solvers (port of ``ops/solvers.py``, the essential and
-homography subset).
+"""Batched minimal solvers (port of ``ops/solvers.py``).
 
 - Nister's five-point essential solver (five-point.cpp:260-455 run5Point):
   QR nullspace of the 5x9 epipolar system, the ten cubic constraints
@@ -13,8 +12,11 @@ homography subset).
   form, real eigenvalues by a sign scan of Hyman's determinant on a tan
   grid + bisection, eigenvectors from Hyman's recurrence, then the same
   polish.
-- the (weighted) 8-point solver, and the homography DLT with its transfer
-  error, which the degeneracy check scores.
+- the (weighted) 8-point solver, the 7-point fundamental solver, and the
+  homography DLT with its transfer error, which the degeneracy check
+  scores;
+- ``solve_small`` / ``det_small``: unrolled partial-pivot elimination for
+  tiny batched systems.
 
 Each minimal sample yields a fixed number of candidate models plus a
 validity mask.
@@ -166,6 +168,62 @@ def solve_small_lanes(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
         M = torch.where(is_k, rk[None], M)
     X = torch.movedim(M[:, n:, :], -1, 0)
     return X.reshape(batch + (n, m))
+
+
+def solve_small(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Batched dense solve A X = B for tiny systems by unrolled Gaussian
+    elimination with partial pivoting, then back substitution.
+
+    A: (..., n, n), B: (..., n, m). The pivot of column k is the first
+    row at or below k of largest |value| (``argmax``, first maximum wins).
+    Singular systems yield inf/nan (the caller checks finiteness).
+    """
+    n = A.shape[-1]
+    M = torch.cat([A, B], dim=-1)
+    rows = torch.arange(n, device=A.device)
+    for k in range(n):
+        col = torch.where(rows >= k, torch.abs(M[..., :, k]), -1.0)
+        p = torch.argmax(col, dim=-1)
+        # swap rows k <-> p by a permuted gather: idx[k] = p, idx[p] = k
+        idx = torch.where(rows == k, p[..., None],
+                          torch.where(rows == p[..., None], k, rows))
+        M = torch.take_along_dim(M, idx[..., :, None], dim=-2)
+        piv = M[..., k, k]
+        piv = torch.where(torch.abs(piv) > 1e-30, piv, 1e-30)
+        factor = torch.where(rows > k, M[..., :, k] / piv[..., None], 0.0)
+        M = M - factor[..., :, None] * M[..., k:k + 1, :]
+    X = torch.zeros(A.shape[:-2] + (n, B.shape[-1]), dtype=A.dtype,
+                    device=A.device)
+    for k in reversed(range(n)):
+        acc = torch.einsum("...j,...jm->...m", M[..., k, k + 1:n],
+                           X[..., k + 1:, :])
+        piv = M[..., k, k]
+        piv = torch.where(torch.abs(piv) > 1e-30, piv, 1e-30)
+        X[..., k, :] = (M[..., k, n:] - acc) / piv[..., None]
+    return X
+
+
+def det_small(A: torch.Tensor) -> torch.Tensor:
+    """Batched determinant of tiny (n, n) matrices by unrolled elimination
+    with partial pivoting (the pivots of ``solve_small``) and sign
+    tracking."""
+    n = A.shape[-1]
+    M = A
+    rows = torch.arange(n, device=A.device)
+    det = torch.ones(A.shape[:-2], dtype=A.dtype, device=A.device)
+    for k in range(n):
+        col = torch.where(rows >= k, torch.abs(M[..., :, k]), -1.0)
+        p = torch.argmax(col, dim=-1)
+        idx = torch.where(rows == k, p[..., None],
+                          torch.where(rows == p[..., None], k, rows))
+        M = torch.take_along_dim(M, idx[..., :, None], dim=-2)
+        det = det * torch.where(p == k, 1.0, -1.0)
+        piv = M[..., k, k]
+        det = det * piv
+        safe = torch.where(torch.abs(piv) > 1e-30, piv, 1e-30)
+        factor = torch.where(rows > k, M[..., :, k] / safe[..., None], 0.0)
+        M = M - factor[..., :, None] * M[..., k:k + 1, :]
+    return det
 
 
 def nullspace_from_ata(A: torch.Tensor, k: int,
@@ -790,6 +848,90 @@ def solve_8pt(x1, x2, mask=None, weights=None, essential: bool = True,
         torch.sum(mask.to(torch.int32), dim=-1) >= 8
     )
     return E, valid
+
+
+# ---------------------------------------------------------------------------
+# 7-point fundamental solver
+# ---------------------------------------------------------------------------
+
+
+def _cbrt(x: torch.Tensor) -> torch.Tensor:
+    """Real cube root, negative for negative x."""
+    return torch.sign(x) * torch.abs(x) ** (1.0 / 3.0)
+
+
+def solve_7pt(x1: torch.Tensor, x2: torch.Tensor):
+    """Batched 7-point fundamental-matrix solver.
+
+    x1, x2: (..., 7, 2) pixel or normalized coords. F spans the 2-D
+    nullspace of the 7 epipolar rows: F = F1 + lam F2 with det(F1 + lam
+    F2) = 0, a cubic in lam whose coefficients come from its values at
+    lam in {0, 1, -1, 2}, solved in closed form (trigonometric for three
+    real roots, Cardano for one; branch-free). Returns ((..., 3, 3, 3)
+    unit-norm models, (..., 3) validity): up to 3 real solutions per
+    sample (usac FundmatrixEstimator's minimal solver).
+
+    The nullspace basis (F1, F2) is any orthonormal pair of the 2-D
+    space, so another eigensolver gives the same models in another order;
+    a sample with disc ~ 0 may switch between one and three roots.
+    """
+    msk = torch.ones(x1.shape[:-1], dtype=x1.dtype, device=x1.device)
+    x1n, T1 = normalize_points(x1, msk)
+    x2n, T2 = normalize_points(x2, msk)
+    ns = nullspace_from_ata(epipolar_rows(x1n, x2n), 2)  # (..., 9, 2)
+    F1 = ns[..., 0].reshape(ns.shape[:-2] + (3, 3))
+    F2 = ns[..., 1].reshape(ns.shape[:-2] + (3, 3))
+
+    d0 = det_small(F1)
+    d1 = det_small(F1 + F2)
+    dm1 = det_small(F1 - F2)
+    d2 = det_small(F1 + 2.0 * F2)
+    c0 = d0
+    c2 = 0.5 * (d1 + dm1) - d0
+    c3 = (d2 - 2.0 * d1 + d0 - 2.0 * c2) / 6.0
+    c1 = d1 - d0 - c2 - c3
+
+    # roots of c3 x^3 + c2 x^2 + c1 x + c0; a vanishing c3 is clamped
+    eps = 1e-12
+    c3_safe = torch.where(torch.abs(c3) < eps,
+                          torch.where(c3 < 0, -eps, eps), c3)
+    a = c2 / c3_safe
+    b = c1 / c3_safe
+    c = c0 / c3_safe
+    # depressed cubic t^3 + p t + q, x = t - a / 3
+    p = b - a * a / 3.0
+    q = 2.0 * a**3 / 27.0 - a * b / 3.0 + c
+    disc = (q / 2.0) ** 2 + (p / 3.0) ** 3
+
+    # three real roots (trigonometric)
+    pm = torch.clamp(p, max=-eps)
+    m = 2.0 * torch.sqrt(-pm / 3.0)
+    theta = torch.arccos(torch.clamp(3.0 * q / (pm * m), -1.0, 1.0)) / 3.0
+    two_pi_3 = 2.0 * math.pi / 3.0
+    t_tri = torch.stack([
+        m * torch.cos(theta),
+        m * torch.cos(theta - two_pi_3),
+        m * torch.cos(theta - 2.0 * two_pi_3),
+    ], dim=-1)
+    # one real root (Cardano)
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    t_car = (_cbrt(-q / 2.0 + sq) + _cbrt(-q / 2.0 - sq))[..., None].expand(
+        t_tri.shape)
+
+    three_real = disc <= 0.0
+    lam = torch.where(three_real[..., None], t_tri, t_car) - (a / 3.0)[
+        ..., None]
+    valid = torch.cat([
+        torch.ones_like(three_real[..., None]),
+        three_real[..., None].expand(three_real.shape + (2,)),
+    ], dim=-1)
+
+    Fn = F1[..., None, :, :] + lam[..., None, None] * F2[..., None, :, :]
+    F = T2.transpose(-1, -2)[..., None, :, :] @ Fn @ T1[..., None, :, :]
+    nrm = torch.linalg.norm(F.flatten(-2), dim=-1)
+    F = F / torch.clamp(nrm, min=1e-12)[..., None, None]
+    valid = valid & torch.all(torch.isfinite(F).flatten(-2), dim=-1)
+    return F, valid
 
 
 # ---------------------------------------------------------------------------

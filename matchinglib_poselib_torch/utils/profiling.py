@@ -11,7 +11,8 @@ loop exits (the JAX package's ``lax.while_loop`` exits) and the values
 the streaming framework's decisions read on the host (``fetch``): one
 sync each. Inside ``HostSyncs.traced()`` every read also notes its site
 and the loop iteration it ends; ``loop_iterations`` turns that log into
-the iterations of each run of each loop.
+the iterations of each run of each loop. ``trace`` records a block
+under ``torch.profiler`` into a Chrome trace.
 """
 
 from __future__ import annotations
@@ -123,3 +124,18 @@ class StageTimer:
 
     def reset(self) -> None:
         self.times_ms.clear()
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | None):
+    """Record the block under ``torch.profiler`` (every activity the build
+    supports: the CPU, and the card where PyTorch has CUDA) and write a
+    Chrome trace (``*.pt.trace.json``) into `log_dir`; does nothing when
+    `log_dir` is None."""
+    if log_dir is None:
+        yield
+        return
+    from torch.profiler import profile, tensorboard_trace_handler
+
+    with profile(on_trace_ready=tensorboard_trace_handler(str(log_dir))):
+        yield

@@ -195,6 +195,85 @@ def test_host_layer_and_clis_run_without_importing_jax(tmp_path):
     assert proc.stdout.strip().endswith("OK")
 
 
+def test_library_layer_runs_without_importing_jax(tmp_path):
+    """A fresh interpreter imports ``ops.optflow``, ``apps.ros_interface``,
+    ``entry`` and the example, runs each on the CPU at a tiny size (LK
+    flow with LKOF and ALKOF, the node over a frame plain and with
+    stereoRef, ``entry(device="cpu")``'s step, the example on a written
+    stereo directory, a ``trace``) and never imports jax or the JAX
+    package."""
+    code = textwrap.dedent(f"""
+        import contextlib, io, pathlib, sys
+        import numpy as np, torch
+        torch.set_num_threads(2)
+        import chip_smoke
+        from matchinglib_poselib_torch import entry
+        from matchinglib_poselib_torch.apps import ros_interface
+        from matchinglib_poselib_torch.examples import match_and_pose
+        from matchinglib_poselib_torch.ops import optflow
+        from matchinglib_poselib_torch.utils import profiling
+        d = pathlib.Path({str(tmp_path)!r})
+        pairs, K, R, t = chip_smoke.render_sequence(0, 2, 320, 240)
+        chip_smoke.write_stereo_dir(d / "imgs", pairs, K, R, t)
+        (a, b), (c, _) = pairs
+        kp = torch.tensor([[60.0, 40.0], [100.0, 50.0]])
+        ok = torch.ones(2, dtype=torch.bool)
+        words = torch.zeros(2, 8, dtype=torch.int32)
+        with profiling.trace(str(d / "trace")):
+            fl = optflow.lk_flow(torch.tensor(a), torch.tensor(c), kp, ok)
+        assert list((d / "trace").iterdir())
+        assert fl.pts.shape == (2, 2)
+        optflow.match_lkof(kp, kp, ok, ok, torch.tensor(a), torch.tensor(c))
+        optflow.match_alkof(kp, kp, words, words, ok, ok, torch.tensor(a),
+                            torch.tensor(c))
+        for params in ({{"nrFeatures": 64}},
+                       {{"nrFeatures": 64, "stereoRef": "1"}}):
+            node = ros_interface.MatchingPoselibNode(params, device="cpu")
+            node.set_calibration(K, K, np.zeros(5), np.zeros(5))
+            msg = node.handle_stereo_pair(a, b)
+            assert msg.R.shape == (3, 3)
+        fn, args = entry.entry(device="cpu")
+        assert fn(*args)[0].shape == (3, 3)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert match_and_pose.main([str(d / "imgs")], device="cpu") == 0
+        assert "matches" in out.getvalue() and "inliers" in out.getvalue()
+        bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+               or m.startswith("matchinglib_poselib_tpu")]
+        assert not bad, bad
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().endswith("OK")
+
+
+@pytest.mark.parametrize("module", [
+    "ops/optflow.py", "apps/ros_interface.py", "entry.py",
+    "examples/match_and_pose.py", "utils/profiling.py", "apps/common.py",
+])
+def test_library_layer_picks_no_device_on_its_own(module):
+    """The library layer's entry points run on the device they are given:
+    none of these modules asks whether there is a card, but
+    ``apps.common.cli_device``, which raises without one (no fallback to
+    the CPU)."""
+    with open(os.path.join(REPO, "matchinglib_poselib_torch", module)) as f:
+        src = f.read()
+    n_checks = src.count("torch.cuda.is_available()")
+    if module == "apps/common.py":
+        assert n_checks == 1
+        from matchinglib_poselib_torch.apps import common
+
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                common.cli_device("cuda", "entry")
+        assert common.cli_device("cpu").type == "cpu"
+    else:
+        assert n_checks == 0
+
+
 def test_native_loader_builds_only_into_build_dir(tmp_path):
     """Building the port's image loader writes nothing outside
     ``matchinglib_poselib_torch/_build/`` (a copy of the package, built in
