@@ -178,6 +178,36 @@ Phases (any failure exits non-zero):
      ``library`` lines with ms per call, host syncs and device ops, the
      card's name and power limit, and the phase's wall seconds.
 
+  11. distribution (``distribution_phase``), each rank a process of its
+     own that loads phase 1's kernels (``dist_rank``, ``run_world``; 300 s
+     per world at most): (a) a world of 1 over NCCL on cuda:0, (b) a world
+     of 2 ranks sharing cuda:0 over gloo (the compute on the card, the
+     collectives through gloo), (c) with 2 or more cards NCCL with one
+     rank per card (2 or 4; on one card it prints that (c) was not run).
+     Each world: ``sharded_match`` of the scene's 2048 right-image ORB
+     descriptors against a seeded db of 1,048,576 rows (8 words, the left
+     image's descriptors planted at spread rows) over the db ranks, equal
+     bit for bit to the kernels over the whole db in this process
+     (``match_descriptors`` without the ratio fallback) and to
+     ``knn2_plain`` on 3 slices of 64 query rows, K2a 2 launches per call
+     per rank; the same for SIFT 2048 x 128 against 262,144 unit rows at
+     phase 3b's bars (K2b 2 launches); ``bundle_adjust_sharded`` on a
+     keyframe window (``dist_ba_problem``: 10 cameras of the sequence's
+     rig, 16,384 points, ~70% seen, cameras 1-9 turned by 0.5 deg, 8
+     iterations): every camera within 0.05 deg of the planted pose and
+     within 5e-4 of single-card ``bundle_adjust``, in (a) with no host
+     read under ``set_sync_debug_mode("error")``; ``dryrun_multichip``;
+     every rank's outputs the same bits. (b) and (c) also: the consensus
+     over phase 6's 10 frames on a (world x 1) mesh within 0.2 / 1.0 deg
+     of phase 6's most-likely pose; phase 7's 8 pairs split over the
+     pairs ranks through ``run_batch``, each pair equal to phase 7's
+     (slots 100%, masks equal, 0.01 / 0.05 deg), K1 once and K2a twice a
+     pair per rank. ``distribution`` lines per world and function (ms per
+     call per rank of 3 after a warm one, host clock ending in a sync; ms
+     in the collectives and their count; launches, host syncs, device ops
+     and busy ms; BA's all-reduces per LM iteration) with the card's name
+     and power limit, and the phase's wall seconds.
+
 Prints a JSON ``kernels`` line, one JSON ``step`` line per path, the
 card's name and power limit, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
@@ -395,6 +425,11 @@ def _sequence(seed: int):
     return render_sequence(seed, STREAM_FRAMES)
 
 
+# traces taken at most for one device time: now and then a trace records
+# no kernel at all (3 tries in a row did once, in phase 10's K2b check)
+DEVICE_PROFILE_TRIES = 6
+
+
 def _cuda_ms(torch, fn, iters=20, warm=3):
     """Mean milliseconds per call on the stream, by CUDA events around
     `iters` back-to-back calls after `warm` warm-up calls. Includes any
@@ -412,7 +447,7 @@ def _cuda_ms(torch, fn, iters=20, warm=3):
     return start.elapsed_time(end) / iters
 
 
-def _device_profile(torch, fn, iters=10, tries=3):
+def _device_profile(torch, fn, iters=10, tries=DEVICE_PROFILE_TRIES):
     """(device ms, device ops) per call of `fn`, from torch.profiler: the
     summed time of every kernel it launches, which unlike CUDA events
     around back-to-back calls leaves out the gaps where the card waits for
@@ -443,7 +478,7 @@ def _device_profile(torch, fn, iters=10, tries=3):
     return out
 
 
-def _device_ms(torch, fn, iters=10, tries=3):
+def _device_ms(torch, fn, iters=10, tries=DEVICE_PROFILE_TRIES):
     """Device ms per call of `fn` (`_device_profile`)."""
     return _device_profile(torch, fn, iters, tries)[0]
 
@@ -1588,7 +1623,7 @@ def stream_phase(torch, cfg, det, desc, match, dev, seed):
         "checkpoint": ckpt,
         **times, "phase_s": time.perf_counter() - t_phase,
     }
-    return record, failures
+    return record, failures, (results, [p["n_corr"] for p in per_frame])
 
 
 # phase 7, the batch: the first BATCH_PAIRS frames of the sequence (the
@@ -1851,7 +1886,7 @@ def batch_phase(torch, det, desc, match, pose_cfg, dev, seed):
         "cpu_check_s": cpu_s, "profiled_s": profiled_s,
         "phase_s": time.perf_counter() - t_phase,
     }
-    return record, failures
+    return record, failures, (corr, pose, (imgs1, imgs2, Kt, U, D))
 
 
 def batch_options_phase(torch, det, desc, match, pose_cfg, dev, seed):
@@ -3411,6 +3446,673 @@ def library_phase(torch, dev, seed, det, desc, match, robust_cfg):
     return out, failures, time.perf_counter() - t_phase
 
 
+# ---------------------------------------------------------------------------
+# phase 11, distribution: the ("pairs", "db") mesh in worlds of ranks, each
+# rank a process of its own (``dist_rank``) that loads phase 1's kernels
+# ---------------------------------------------------------------------------
+
+DIST_DB_ROWS = 1 << 20  # binary db: 8 words a row, 32 MiB
+DIST_FLOAT_DB_ROWS = 1 << 18  # float db: 128 floats a row, 128 MiB
+DIST_SLICE_ROWS = 64  # query rows of each plain-version slice
+DIST_BA_CAMERAS, DIST_BA_POINTS, DIST_BA_VISIBLE = 10, 16384, 0.7
+DIST_BA_PERTURB_DEG, DIST_BA_ITERATIONS = 0.5, 8
+DIST_BA_DEG, DIST_BA_ATOL = 0.05, 5e-4
+DIST_STREAM_DEG = (0.2, 1.0)
+DIST_FLOAT_TOL = 1e-5
+DIST_TIMED_RUNS = 3
+DIST_RANK_TIMEOUT_S = 300
+DIST_MATCH_FIELDS = ("idx", "distance", "second_distance", "mask")
+
+
+def flagship_configs(cfg):
+    """The flagship step's configs: FAST t=12 at 2048 slots, ORB, GMBSOF,
+    96 x 12 five-point hypotheses."""
+    return (cfg.DetectorConfig(kind="FAST", max_keypoints=2048,
+                               fast_threshold=12.0),
+            cfg.DescriptorConfig(kind="ORB"),
+            cfg.MatchingConfig(matcher_name="GMBSOF"),
+            cfg.PoseConfig(robust=cfg.RobustConfig(batch_hypotheses=96,
+                                                   max_batches=12)))
+
+
+def dist_ba_problem(seed):
+    """A keyframe window of a mapping back end: DIST_BA_CAMERAS left-camera
+    poses of ``render_sequence``'s rig (0.25 m forward and 0.2 deg of yaw a
+    frame), DIST_BA_POINTS points 8-40 m deep inside every view's field,
+    each observation kept with probability DIST_BA_VISIBLE and 0.5 px of
+    noise, cameras 1.. rotated by DIST_BA_PERTURB_DEG about a random axis,
+    the points moved by 0.02 m; camera 0 fixed. Returns (the arguments of
+    ``bundle_adjust`` as float32 arrays, planted R, planted t)."""
+    rng = np.random.default_rng(seed + 120)
+    C, P = DIST_BA_CAMERAS, DIST_BA_POINTS
+    R = np.stack([_rot((0.0, 1.0, 0.0), 0.2 * f) for f in range(C)])
+    t = np.stack([-R[f] @ np.array([0.0, 0.0, 0.25 * f]) for f in range(C)])
+    z = rng.uniform(8.0, 40.0, P)
+    X = np.stack([rng.uniform(-0.5, 0.5, P) * z,
+                  rng.uniform(-0.18, 0.18, P) * z, z], axis=1)
+    Xc = np.einsum("cij,pj->pci", R, X) + t[None]
+    uv = Xc[..., :2] / Xc[..., 2:3] * K_FULL[[0, 1], [0, 1]] + K_FULL[:2, 2]
+    inside = ((uv[..., 0] >= 0) & (uv[..., 0] < WIDTH) & (uv[..., 1] >= 0)
+              & (uv[..., 1] < HEIGHT) & (Xc[..., 2] > 0))
+    vis = inside & (rng.random((P, C)) < DIST_BA_VISIBLE)
+    obs = uv + rng.normal(scale=0.5, size=uv.shape)
+    R0 = R.copy()
+    for c in range(1, C):
+        R0[c] = R[c] @ _rot(_unit(rng.normal(size=3)), DIST_BA_PERTURB_DEG)
+    X0 = X + rng.normal(scale=0.02, size=X.shape)
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    args = (f32(obs), f32(vis), f32(R0), f32(t),
+            f32(np.stack([K_FULL] * C)), np.zeros((C, 5), np.float32),
+            f32(X0), f32([0.0] + [1.0] * (C - 1)))
+    return args, R, t
+
+
+def dist_inputs(torch, cfg, features, pipeline, sift, dev, seed, frames,
+                batch):
+    """The ranks' inputs as numpy arrays: the scene's right-image ORB
+    descriptors (queries) and left-image ones (planted into the binary
+    db), the same for SIFT (float db), the BA window, phase 6's per-frame
+    stream poses and most-likely pose, phase 7's images and streams."""
+    det, desc, match, _ = flagship_configs(cfg)
+    img1, img2, _, _, _ = render_scene(seed)
+    i1, i2 = torch.from_numpy(img1).to(dev), torch.from_numpy(img2).to(dev)
+    corr = pipeline.get_correspondences(i1, i2, det, desc, match)
+    bands = features.detector_bands(det)
+    d1, _ = features.compute_descriptors(i1, corr.kps1, desc, bands)
+    d2, _ = features.compute_descriptors(i2, corr.kps2, desc, bands)
+    kp1 = features.detect_keypoints(i1, sift[0])
+    kp2 = features.detect_keypoints(i2, sift[0])
+    f1, _ = features.compute_descriptors(i1, kp1, sift[1])
+    f2, _ = features.compute_descriptors(i2, kp2, sift[1])
+    host = lambda x: x.cpu().numpy()  # noqa: E731
+    (obs, vis, R0, t0, Kc, dc, X0, free), R_true, t_true = dist_ba_problem(
+        seed)
+    (results, n_corr), (imgs1, imgs2, K, U, D) = frames, batch
+    return {
+        "bin_q": host(d2), "bin_vq": host(corr.kps2.mask),
+        "bin_plant": host(d1), "flt_q": host(f2), "flt_vq": host(kp2.mask),
+        "flt_plant": host(f1),
+        "ba_obs": obs, "ba_vis": vis, "ba_R": R0, "ba_t": t0, "ba_K": Kc,
+        "ba_dist": dc, "ba_X": X0, "ba_free": free, "ba_R_true": R_true,
+        "ba_t_true": t_true,
+        "stream_R": np.float32([r.R for r in results]),
+        "stream_t": np.float32([r.t for r in results]),
+        "stream_w": np.float32([max(r.inlier_ratio, 1e-3) * n
+                                for r, n in zip(results, n_corr)]),
+        "stream_R_ml": results[-1].R_most_likely,
+        "stream_t_ml": results[-1].t_most_likely,
+        "batch_imgs1": host(imgs1), "batch_imgs2": host(imgs2),
+        "batch_K": host(K), "batch_U": host(U), "batch_D": host(D),
+    }
+
+
+def dist_databases(torch, dev, inputs, seed):
+    """The seeded databases on `dev`, the same bits in every process: the
+    binary one (DIST_DB_ROWS random 8-word rows, the left image's ORB
+    descriptors planted at spread rows) and the float one
+    (DIST_FLOAT_DB_ROWS random non-negative unit rows, as SIFT's, the left
+    image's SIFT descriptors planted at spread rows)."""
+    g = torch.Generator(device=dev).manual_seed(seed + 110)
+    db = torch.randint(-2**31, 2**31, (DIST_DB_ROWS, 8), generator=g,
+                       device=dev, dtype=torch.int64).to(torch.int32)
+    fdb = torch.randn((DIST_FLOAT_DB_ROWS, 128), generator=g, device=dev)
+    fdb = torch.abs(fdb)
+    fdb = fdb / torch.linalg.norm(fdb, dim=1, keepdim=True)
+    for table, key in ((db, "bin_plant"), (fdb, "flt_plant")):
+        plant = torch.from_numpy(inputs[key]).to(dev)
+        rows = np.linspace(0, table.shape[0] - 1, plant.shape[0])
+        table[torch.from_numpy(rows.astype(np.int64)).to(dev)] = plant
+    return db, fdb
+
+
+def _collective_split(torch, pmesh, fn):
+    """One call of `fn` with each collective of ``parallel.mesh`` timed
+    alone (a sync before and after it, so the time includes waiting for
+    the other ranks): {ms in collectives, the call's ms, count of each}."""
+    counts = {"all_reduce": 0, "all_gather": 0}
+    orig = {k: getattr(pmesh, k) for k in counts}
+    spent = [0.0]
+
+    def timed(name):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig[name](*a, **kw)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            counts[name] += 1
+            return out
+        return call
+
+    for k in counts:
+        setattr(pmesh, k, timed(k))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for k, f in orig.items():
+            setattr(pmesh, k, f)
+    return {"ms": spent[0] * 1e3, "call_ms": call_ms, **counts}
+
+
+def _dist_measure(torch, kernels, pmesh, fn):
+    """A function of a rank: the counted call (launch counts from 0 just
+    before, read just after; host syncs), a barrier, DIST_TIMED_RUNS timed
+    calls (host clock ending in a sync), one call with the collectives timed
+    alone, one profiled call (device busy ms, device ops, its 3 costliest
+    kernels). Returns (the counted call's output, record)."""
+    from matchinglib_poselib_torch.utils.profiling import HostSyncs
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    s0 = HostSyncs.count
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    rec = {"warm_ms": (time.perf_counter() - t0) * 1e3,
+           "launches": kernels.launch_counts(),
+           "host_syncs": HostSyncs.count - s0}
+    # the ranks start the timed calls together: a rank's first timed call
+    # would otherwise wait in a collective for another's counted call
+    torch.distributed.barrier()
+    ms = []
+    for _ in range(DIST_TIMED_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    rec["ms"], rec["ms_mean"] = ms, float(np.mean(ms))
+    rec["ms_median"] = float(np.median(ms))
+    rec["collectives"] = _collective_split(torch, pmesh, fn)
+    try:
+        device, _ = _device_events(torch, fn)
+    except RuntimeError as e:  # a measurement, not a check: not measured
+        rec["device_busy_ms"] = rec["device_ops"] = None
+        rec["profiler_error"] = str(e).splitlines()[0][:200]
+        return out, rec
+    rec["device_busy_ms"] = sum(e.self_device_time_total
+                                for e in device) / 1e3
+    rec["device_ops"] = sum(e.count for e in device)
+    rec["top_kernels"] = [[e.key[:60], e.self_device_time_total / 1e3,
+                           e.count] for e in device[:3]]
+    return out, rec
+
+
+def _rank_device(torch, rank):
+    """A rank's card: one per rank while there are cards, else shared."""
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def dist_rank(rank, world, backend, port, tmp, seed) -> int:
+    """One rank of a phase 11 world (run in a process of its own): joins
+    the world at tcp://127.0.0.1:`port`, runs and measures each
+    distributed function on its card, runs ``dryrun_multichip``, and
+    writes its outputs to `tmp`/<backend><world>_rank<r>.npz and its
+    records to .json, with the seconds since its start at which each
+    step ended (``timeline_s``)."""
+    import datetime
+
+    t_start = time.perf_counter()
+    timeline = {}
+
+    def mark(step):
+        timeline[step] = time.perf_counter() - t_start
+
+    import torch
+    import torch.distributed as dist
+
+    from matchinglib_poselib_torch import config as cfg, entry
+    from matchinglib_poselib_torch.models import pipeline
+    from matchinglib_poselib_torch.ops import kernels
+    from matchinglib_poselib_torch.parallel import mesh as pmesh, stream
+    from matchinglib_poselib_torch.parallel.ba import bundle_adjust_sharded
+    from matchinglib_poselib_torch.parallel.matching import sharded_match
+
+    mark("imports")
+    dev = _rank_device(torch, rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=DIST_RANK_TIMEOUT_S))
+    inp = dict(np.load(f"{tmp}/inputs.npz"))
+
+    def on(key):
+        return torch.from_numpy(inp[key]).to(dev)
+
+    db, fdb = dist_databases(torch, dev, inp, seed)
+    mark("world, inputs and databases")
+    # matching and BA shard over db (1 x world), frames and pairs over
+    # pairs (world x 1)
+    m_db = pmesh.make_mesh(world, device=dev)
+    m_pairs = m_db if world == 1 else pmesh.make_mesh(1, device=dev)
+    mark("meshes")
+    blk = functools.partial(pmesh.db_block, m_db)
+    ones = functools.partial(torch.ones, dtype=torch.bool, device=dev)
+    ba_args = [on(f"ba_{k}") for k in ("obs", "vis", "R", "t", "K", "dist",
+                                       "X", "free")]
+    fns = {
+        "binary_match": lambda: sharded_match(
+            m_db, on("bin_q"), blk(db), on("bin_vq"), blk(ones(len(db)))),
+        "float_match": lambda: sharded_match(
+            m_db, on("flt_q"), blk(fdb), on("flt_vq"), blk(ones(len(fdb))),
+            binary=False),
+        "bundle_adjust": lambda: bundle_adjust_sharded(
+            m_db, *ba_args, iterations=DIST_BA_ITERATIONS),
+    }
+    if world > 1:
+        det, desc, match, pose_cfg = flagship_configs(cfg)
+        pipe = pipeline.StereoPipeline(det, desc, match, pose_cfg,
+                                       device=dev)
+        Kt, dz = on("batch_K"), torch.zeros(5, device=dev)
+        i1, i2, U, D = (pmesh.pairs_block(m_pairs, on(f"batch_{k}"))
+                        for k in ("imgs1", "imgs2", "U", "D"))
+        fns["consensus"] = lambda: stream.windowed_pose_consensus(
+            m_pairs, *(stream.frame_window_block(m_pairs, on(f"stream_{k}"))
+                       for k in ("R", "t", "w")))
+        fns["pairs_batch"] = lambda: pipe.run_batch(
+            i1, i2, Kt, Kt, dz, dz, uniforms=U, degen_uniforms=D)
+    out, recs = {}, {}
+    for name, fn in fns.items():
+        res, recs[name] = _dist_measure(torch, kernels, pmesh, fn)
+        if name.endswith("_match"):
+            q, table = ("bin_q", db) if name == "binary_match" else (
+                "flt_q", fdb)
+            recs[name]["shape"] = [len(inp[q]), len(blk(table)),
+                                   table.shape[1]]
+        if name == "pairs_batch":
+            corr, pose = res
+            res = {"kps1_mask": corr.kps1.mask, "kps1_xy": corr.kps1.xy,
+                   "kps2_mask": corr.kps2.mask, "kps2_xy": corr.kps2.xy,
+                   "pts2": corr.pts2, "mask": corr.mask, "R": pose.R,
+                   "t": pose.t, "inlier_mask": pose.inlier_mask}
+        else:
+            res = res._asdict() if hasattr(res, "_asdict") else dict(
+                zip(("R", "t", "wsum"), res))
+        out.update({f"{name}/{k}": v.cpu().numpy() for k, v in res.items()})
+        mark(name)
+    if world == 1:
+        # the LM loop with its all-reduces reads nothing on the host
+        recs["bundle_adjust"]["sync_debug_failures"] = check_no_host_sync(
+            torch, "bundle_adjust_sharded", fns["bundle_adjust"])
+    t0 = time.perf_counter()
+    dry = entry.dryrun_multichip(device=dev)
+    recs["dryrun"] = {"s": time.perf_counter() - t0,
+                      "mesh": list(dry.mesh_shape),
+                      "ba_vs_single": dry.ba_vs_single,
+                      "consensus_rot_deg": dry.consensus_rot_deg}
+    mark("dryrun")
+    recs["timeline_s"] = timeline
+    recs["mesh_db"] = [pmesh.axis_size(m_db, a) for a in (pmesh.PAIRS_AXIS,
+                                                          pmesh.DB_AXIS)]
+    recs["mesh_pairs"] = [pmesh.axis_size(m_pairs, a)
+                          for a in (pmesh.PAIRS_AXIS, pmesh.DB_AXIS)]
+    recs["coordinate"] = [pmesh.axis_index(m_pairs, pmesh.PAIRS_AXIS),
+                          pmesh.axis_index(m_db, pmesh.DB_AXIS)]
+    dist.barrier()
+    dist.destroy_process_group()
+    name = f"{tmp}/{backend}{world}_rank{rank}"
+    np.savez(name + ".npz", **out)
+    with open(name + ".json", "w") as f:
+        json.dump(recs, f)
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_world(backend, world, tmp, seed, prelude=""):
+    """Start the `world` ranks of a world (one process each) and wait for
+    them, DIST_RANK_TIMEOUT_S at most: (per-rank outputs and records, or
+    None, failures). `prelude`: Python run in each rank before it starts
+    (``chip_probes/distribution_rehearsal.py`` replaces the card's calls
+    there)."""
+    import os
+
+    port = _free_port()
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for r in range(world):
+        code = (f"import sys; sys.path.insert(0, {here!r}); import chip_smoke\n"
+                f"{prelude}\nsys.exit(chip_smoke.dist_rank({r}, {world}, "
+                f"{backend!r}, {port}, {tmp!r}, {seed}))")
+        log = open(f"{tmp}/{backend}{world}_rank{r}.log", "w")
+        procs.append((subprocess.Popen([sys.executable, "-c", code],
+                                       stdout=log, stderr=subprocess.STDOUT,
+                                       cwd=here), log))
+    deadline = time.monotonic() + DIST_RANK_TIMEOUT_S
+    failures = []
+    try:
+        for r, (p, _) in enumerate(procs):
+            try:
+                rc = p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                failures.append(f"{backend} x{world} rank {r}: timed out "
+                                f"after {DIST_RANK_TIMEOUT_S} s")
+                break
+            if rc != 0:
+                failures.append(f"{backend} x{world} rank {r}: exit {rc}")
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    if failures:
+        for r in range(world):
+            with open(f"{tmp}/{backend}{world}_rank{r}.log") as f:
+                tail = f.read()[-3000:]
+            print(f"[{backend} x{world} rank {r}]\n{tail}", file=sys.stderr)
+        return None, failures
+    ranks = []
+    for r in range(world):
+        name = f"{tmp}/{backend}{world}_rank{r}"
+        with open(name + ".json") as f:
+            ranks.append((dict(np.load(name + ".npz")), json.load(f)))
+    return ranks, failures
+
+
+def dist_references(torch, matching, knn2, ba, inputs, db, fdb, dev):
+    """What every world is held to, computed in this process on the card:
+    ``match_descriptors`` over the whole databases (the kernels over all
+    rows, no ratio fallback), the plain versions on DIST_SLICE_ROWS-row
+    slices of the queries, and single-card ``bundle_adjust``."""
+    on = lambda k: torch.from_numpy(inputs[k]).to(dev)  # noqa: E731
+    refs = {}
+    for kind, table, binary in (("bin", db, True), ("flt", fdb, False)):
+        q, vq = on(f"{kind}_q"), on(f"{kind}_vq")
+        vdb = torch.ones(len(table), dtype=torch.bool, device=dev)
+        res = matching.match_descriptors(q, table, vq, vdb, binary=binary,
+                                         ratio_fallback=False)
+        refs[kind] = {k: getattr(res, k).cpu().numpy()
+                      for k in DIST_MATCH_FIELDS}
+        plain = knn2.knn2_plain if binary else knn2.knn2_l2_plain
+        n = q.shape[0]
+        refs[kind + "_slices"] = []
+        for a in (0, n // 2 - DIST_SLICE_ROWS // 2, n - DIST_SLICE_ROWS):
+            s = slice(a, a + DIST_SLICE_ROWS)
+            refs[kind + "_slices"].append(
+                (s, [x.cpu().numpy() for x in plain(q[s], table, vdb)]))
+    args = [on(f"ba_{k}") for k in ("obs", "vis", "R", "t", "K", "dist", "X",
+                                    "free")]
+    res = ba.bundle_adjust(*args, iterations=DIST_BA_ITERATIONS)
+    refs["ba"] = {"R": res.R.cpu().numpy(), "t": res.t.cpu().numpy()}
+    return refs
+
+
+def _dist_match_checks(label, kind, out, refs, vq, exact):
+    """A world's sharded match against the whole-db reference and the
+    plain slices: exact for Hamming, DIST_FLOAT_TOL (1 + |d|) for squared
+    L2 with idx and mask held where no near tie decides them. An invalid
+    query is (1e9, 1e9, 0), not kept, as in the JAX package."""
+    fails = []
+    got = {k: out[f"{kind}/{k}"] for k in DIST_MATCH_FIELDS}
+    ref = refs["bin" if exact else "flt"]
+    inval = ~vq
+    if inval.any() and not (np.all(got["distance"][inval] == 1e9)
+                            and np.all(got["idx"][inval] == 0)
+                            and not got["mask"][inval].any()):
+        fails.append(f"{label} {kind}: invalid queries not (1e9, 1e9, 0)")
+    if exact:
+        for k in ("idx", "distance", "second_distance"):
+            if not np.array_equal(got[k][vq], ref[k][vq]):
+                fails.append(f"{label} {kind}: {k} != whole-db knn2")
+        if not np.array_equal(got["mask"], ref["mask"]):
+            fails.append(f"{label} {kind}: mask != whole-db match")
+    else:
+        tol = DIST_FLOAT_TOL * (1.0 + np.abs(ref["distance"]))
+        for k in ("distance", "second_distance"):
+            if np.any(np.abs(got[k] - ref[k])[vq] > tol[vq]):
+                fails.append(f"{label} {kind}: {k} off the whole-db K2b")
+        clear = vq & (ref["second_distance"] - ref["distance"] > tol)
+        clear &= np.abs(ref["distance"] - 0.8 * ref["second_distance"]) > tol
+        if not np.array_equal(got["idx"][clear], ref["idx"][clear]):
+            fails.append(f"{label} {kind}: idx != whole-db K2b")
+        if not np.array_equal(got["mask"][clear], ref["mask"][clear]):
+            fails.append(f"{label} {kind}: mask != whole-db match")
+    for s, (d1, d2, idx) in refs[("bin" if exact else "flt") + "_slices"]:
+        v = vq[s]
+        g1, g2, gi = (got[k][s][v] for k in ("distance", "second_distance",
+                                              "idx"))
+        if exact:
+            ok = (np.array_equal(g1, d1[v]) and np.array_equal(g2, d2[v])
+                  and np.array_equal(gi, idx[v]))
+        else:
+            tol = DIST_FLOAT_TOL * (1.0 + np.abs(d1[v]))
+            clear = d2[v] - d1[v] > tol
+            ok = (np.all(np.abs(g1 - d1[v]) <= tol)
+                  and np.array_equal(gi[clear], idx[v][clear]))
+        if not ok:
+            fails.append(f"{label} {kind}: rows {s.start}-{s.stop} != the "
+                         "plain version")
+    return fails
+
+
+def _dist_checks(torch, label, world, ranks, inputs, refs, phase7):
+    """Every check of a world. Returns (failures, the checked values:
+    BA's worst camera against the planted pose and against single-card BA,
+    the consensus against phase 6, each pair of the batch against phase
+    7)."""
+    fails, seen = [], {}
+    out0 = ranks[0][0]
+    for r, (out, _) in enumerate(ranks[1:], 1):
+        for k, v in out0.items():
+            # each rank's own block of pairs; the rest is replicated
+            if not k.startswith("pairs_batch/") and not np.array_equal(
+                    out[k], v):
+                fails.append(f"{label}: rank {r}'s {k} != rank 0's")
+    for kind, key, exact, kernel in (
+            ("binary_match", "bin_vq", True, "knn2"),
+            ("float_match", "flt_vq", False, "knn2_l2")):
+        fails += _dist_match_checks(label, kind, out0, refs, inputs[key],
+                                    exact)
+        for r, (_, rec) in enumerate(ranks):
+            want = {"fast_nms": 0, "knn2": 0, "knn2_l2": 0, kernel: 2}
+            if rec[kind]["launches"] != want:
+                fails.append(f"{label} rank {r} {kind}: launches "
+                             f"{rec[kind]['launches']}, expected {want}")
+    R, t = out0["bundle_adjust/R"], out0["bundle_adjust/t"]
+    errs = [_rot_deg(R[c], inputs["ba_R_true"][c])
+            for c in range(DIST_BA_CAMERAS)]
+    fails += [f"{label} BA camera {c}: {e:.4f} deg off"
+              for c, e in enumerate(errs) if e >= DIST_BA_DEG]
+    diff = float(max(np.abs(R - refs["ba"]["R"]).max(),
+                     np.abs(t - refs["ba"]["t"]).max()))
+    seen["ba_worst_camera_deg"], seen["ba_vs_single_card"] = max(errs), diff
+    if diff > DIST_BA_ATOL:
+        fails.append(f"{label} BA cameras {diff} from single-card BA")
+    fails += ranks[0][1]["bundle_adjust"].get("sync_debug_failures", [])
+    if world > 1:
+        rd = _rot_deg(out0["consensus/R"], inputs["stream_R_ml"])
+        td = _dir_deg(out0["consensus/t"], inputs["stream_t_ml"])
+        seen["consensus_vs_phase6_deg"] = [rd, td]
+        if rd >= DIST_STREAM_DEG[0] or td >= DIST_STREAM_DEG[1]:
+            fails.append(f"{label} consensus {rd:.4f} / {td:.4f} deg from "
+                         "phase 6's most-likely pose")
+        from types import SimpleNamespace as NS
+
+        corr7, pose7 = phase7
+        n_blk = len(ranks[0][0]["pairs_batch/R"])
+        for r, (out, rec) in enumerate(ranks):
+            def t_(k):
+                return torch.from_numpy(out[f"pairs_batch/{k}"])
+            singles = [(NS(kps1=NS(mask=t_("kps1_mask")[i],
+                                   xy=t_("kps1_xy")[i]),
+                           kps2=NS(mask=t_("kps2_mask")[i],
+                                   xy=t_("kps2_xy")[i]),
+                           pts2=t_("pts2")[i], mask=t_("mask")[i]),
+                        NS(inlier_mask=t_("inlier_mask")[i], R=t_("R")[i],
+                           t=t_("t")[i])) for i in range(n_blk)]
+            blk = slice(r * n_blk, (r + 1) * n_blk)
+            rows, f = batch_vs_run(torch, NS(
+                kps1=NS(mask=corr7.kps1.mask[blk].cpu(),
+                        xy=corr7.kps1.xy[blk].cpu()),
+                kps2=NS(mask=corr7.kps2.mask[blk].cpu(),
+                        xy=corr7.kps2.xy[blk].cpu()),
+                pts2=corr7.pts2[blk].cpu(), mask=corr7.mask[blk].cpu()),
+                NS(inlier_mask=pose7.inlier_mask[blk].cpu(),
+                   R=pose7.R[blk].cpu(), t=pose7.t[blk].cpu()), singles)
+            fails += [f"{label} rank {r} pairs batch vs phase 7: {x}"
+                      for x in f]
+            seen.setdefault("pairs_vs_phase7", []).extend(rows)
+            want = {"fast_nms": 1, "knn2": 2 * n_blk, "knn2_l2": 0}
+            if rec["pairs_batch"]["launches"] != want:
+                fails.append(f"{label} rank {r} pairs batch: launches "
+                             f"{rec['pairs_batch']['launches']}, expected "
+                             f"{want}")
+    return fails, seen
+
+
+def distribution_phase(torch, cfg, sift, dev, seed, smi, stream, batch,
+                       prelude=""):
+    """Phase 11: the distributed paths in worlds of ranks on the card(s).
+    (a) a world of 1 over NCCL; (b) a world of 2 ranks sharing cuda:0 over
+    gloo (the compute on the card, the collectives through gloo); (c) with
+    2 or more cards, NCCL with one rank per card (2 or 4). Each world runs
+    binary and float ``sharded_match`` against seeded databases of
+    DIST_DB_ROWS / DIST_FLOAT_DB_ROWS rows, ``bundle_adjust_sharded`` on
+    ``dist_ba_problem`` and ``dryrun_multichip``; (b) and (c) also the
+    consensus over phase 6's frames and phase 7's batch split over the
+    pairs ranks. `stream`: (phase 6's FrameResults, their correspondence
+    counts); `batch`: phase 7's (corr, pose, (imgs1, imgs2, K, U, D));
+    `prelude`: as ``run_world``'s. Returns (records by world, failures,
+    wall s)."""
+    import tempfile
+
+    from matchinglib_poselib_torch.models import pipeline
+    from matchinglib_poselib_torch.ops import ba, features, matching
+    from matchinglib_poselib_torch.ops.kernels import knn2
+
+    t_phase = time.perf_counter()
+    corr7, pose7, batch_inputs = batch
+    failures, recs = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = dist_inputs(torch, cfg, features, pipeline, sift, dev, seed,
+                             stream, batch_inputs)
+        np.savez(f"{tmp}/inputs.npz", **inputs)
+        db, fdb = dist_databases(torch, dev, inputs, seed)
+        refs = dist_references(torch, matching, knn2, ba, inputs, db, fdb,
+                               dev)
+        del db, fdb
+        worlds = [("nccl", 1, "a: NCCL, 1 rank on cuda:0"),
+                  ("gloo", 2, "b: gloo, 2 ranks sharing cuda:0")]
+        n_cards = torch.cuda.device_count()
+        if n_cards >= 2:
+            n = 4 if n_cards >= 4 else 2
+            worlds.append(("nccl", n, f"c: NCCL, {n} ranks, one per card"))
+        else:
+            recs["c"] = {"not_run": f"{n_cards} card: NCCL with one rank per "
+                                    "card needs 2 or more"}
+        first = None
+        for backend, world, label in worlds:
+            t0 = time.perf_counter()
+            ranks, fails = run_world(backend, world, tmp, seed, prelude)
+            failures += [f"distribution {x}" for x in fails]
+            if ranks is None:
+                continue
+            fails, seen = _dist_checks(torch, label, world, ranks, inputs,
+                                       refs, (corr7, pose7))
+            failures += [f"distribution {x}" for x in fails]
+            # the Hamming fields: the same bits in every world
+            hamming = {k: v for k, v in ranks[0][0].items()
+                       if k.startswith("binary_match/")}
+            first = first or hamming
+            failures += [f"distribution {label}: {k} != world (a)'s"
+                         for k, v in hamming.items()
+                         if not np.array_equal(v, first[k])]
+            recs[label] = {"s": time.perf_counter() - t0, "checks": seen,
+                           "ranks": [rec for _, rec in ranks]}
+    return recs, failures, time.perf_counter() - t_phase
+
+
+def dist_knn_bound(binary, n1, n2, width, n_sm):
+    """(bound ms, what bounds it) of one 2-NN launch of n1 queries against
+    n2 candidates, unguided, by phase 3's rules: K2a the lesser of the
+    POPC and the tensor-core route (its 32-bit epilogue at its least),
+    K2b the fp32 product, norms and epilogue at the fp32 peak."""
+    pairs, sm_clk_s = n1 * n2, n_sm * SM_CLOCK_HZ
+    nbytes = (n1 + n2) * width * 4 + n2 + n1 * 12
+    if not binary:
+        return _bound(nbytes, (2 * pairs * width + 2 * (n1 + n2) * width
+                               + 4 * pairs) / FP32_FLOP_S)
+    popc = _bound(nbytes, pairs * width / (POPC_PER_CLK_SM * sm_clk_s))
+    tc = _bound(nbytes, pairs / sm_clk_s * max(
+        2 * 32 * width / BMMA_OPS_PER_CLK_SM,
+        KNN2_INT_OPS[0] / INT32_PER_CLK_SM))
+    return min(popc, tc)
+
+
+def dist_lines(recs, smi, n_sm):
+    """Phase 11's ``distribution`` JSON lines (one per world and function,
+    per-rank lists; for a match, each launch's bound at the rank's shape)
+    and its launches per call by world and function."""
+    lines, launches = [], {}
+    meta = ("dryrun", "mesh_db", "mesh_pairs", "coordinate", "timeline_s")
+    for label, w in recs.items():
+        if "ranks" not in w:
+            lines.append({"distribution": "world", "world": label, "card": smi,
+                          **w})
+            continue
+        ranks = w["ranks"]
+        launches[label] = {}
+        for fn in (k for k in ranks[0] if k not in meta):
+            per = [r[fn] for r in ranks]
+            mesh = ranks[0]["mesh_pairs" if fn in ("consensus", "pairs_batch")
+                            else "mesh_db"]
+            line = {"distribution": fn, "world": label, "card": smi,
+                    "mesh": mesh,
+                    "ms_mean_per_rank": [p["ms_mean"] for p in per],
+                    "ms_median_per_rank": [p["ms_median"] for p in per],
+                    "ms_per_rank": [p["ms"] for p in per],
+                    "warm_ms_per_rank": [p["warm_ms"] for p in per],
+                    "collective_ms_per_rank": [p["collectives"]["ms"]
+                                               for p in per],
+                    "collective_call_ms_per_rank": [p["collectives"]["call_ms"]
+                                                    for p in per],
+                    "collectives": {k: per[0]["collectives"][k]
+                                    for k in ("all_reduce", "all_gather")},
+                    "launches": per[0]["launches"],
+                    "host_syncs_per_rank": [p["host_syncs"] for p in per],
+                    "device_ops_per_rank": [p["device_ops"] for p in per],
+                    "device_busy_ms_per_rank": [p["device_busy_ms"]
+                                                for p in per]}
+            if "top_kernels" in per[0]:
+                line["top_kernels_rank0"] = per[0]["top_kernels"]
+            if "shape" in per[0]:
+                n_q, rows, width = line["shape_per_rank"] = per[0]["shape"]
+                fwd = dist_knn_bound(fn == "binary_match", n_q, rows, width,
+                                     n_sm)
+                rev = dist_knn_bound(fn == "binary_match", rows, n_q, width,
+                                     n_sm)
+                line["bound_ms_forward_reverse"] = [fwd[0], rev[0]]
+                line["bound_by"] = fwd[1]
+            if fn == "bundle_adjust":
+                # 2 before the loop (the visible count, the first cost)
+                line["all_reduces_per_lm_iteration"] = (
+                    per[0]["collectives"]["all_reduce"] - 2
+                ) / DIST_BA_ITERATIONS
+                if "sync_debug_failures" in per[0]:
+                    line["sync_debug_failures"] = per[0]["sync_debug_failures"]
+            lines.append(line)
+            launches[label][fn] = per[0]["launches"]
+        lines.append({"distribution": "checks", "world": label, "card": smi,
+                      **w["checks"]})
+        lines.append({"distribution": "dryrun_multichip", "world": label,
+                      "card": smi, "per_rank": [r["dryrun"] for r in ranks],
+                      "world_s": w["s"],
+                      "timeline_s_per_rank": [r["timeline_s"] for r in ranks]})
+    return lines, launches
+
+
 def _bound(bytes_moved, time_ops):
     """(bound ms, what bounds it): the larger of the bytes over the HBM
     rate and the operation time."""
@@ -3448,12 +4150,7 @@ def main(argv=None) -> int:
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"[ptxas {name}] {line.strip()}", file=sys.stderr)
 
-    det = cfg.DetectorConfig(kind="FAST", max_keypoints=2048,
-                             fast_threshold=12.0)
-    desc = cfg.DescriptorConfig(kind="ORB")
-    match = cfg.MatchingConfig(matcher_name="GMBSOF")
-    pose_cfg = cfg.PoseConfig(
-        robust=cfg.RobustConfig(batch_hypotheses=96, max_batches=12))
+    det, desc, match, pose_cfg = flagship_configs(cfg)
     sift = (cfg.DetectorConfig(kind="SIFT", max_keypoints=2048),
             cfg.DescriptorConfig(kind="SIFT"),
             cfg.MatchingConfig(matcher_name="GMBSOF", gms_filter=True))
@@ -3631,14 +4328,14 @@ def main(argv=None) -> int:
         (f"FAST t=12 / 2048 kp / ORB / {m_name} / 96x12 5pt USAC", rec)
         for m_name, rec in match_steps)
     # 6. the stream: StereoRefine on the card, fed by the front end
-    stream_rec, fails = stream_phase(torch, cfg, det, desc, match, dev,
-                                     args.seed)
+    stream_rec, fails, stream_frames = stream_phase(
+        torch, cfg, det, desc, match, dev, args.seed)
     failures.extend(f"stream: {f}" for f in fails)
     steps.append(("stream: poselib-test --stereoRef defaults (pool 30000) /"
                   " FAST t=12 / 2048 kp / ORB / GMBSOF", stream_rec))
     # 7. the batch: run_batch on the sequence's first 8 pairs
-    batch_rec, fails = batch_phase(torch, det, desc, match, pose_cfg, dev,
-                                   args.seed)
+    batch_rec, fails, batch_out = batch_phase(torch, det, desc, match,
+                                              pose_cfg, dev, args.seed)
     failures.extend(f"batch: {f}" for f in fails)
     steps.append((f"batch of {BATCH_PAIRS} (render_sequence frames 1-"
                   f"{BATCH_PAIRS}): FAST t=12 / 2048 kp / ORB / GMBSOF / "
@@ -3713,6 +4410,18 @@ def main(argv=None) -> int:
         print(json.dumps({"library": row, "card": smi, **lib["apps"][row]}))
     print(json.dumps({"phase_10_s": lib_s, "card": smi, **{
         k: lib[k] for k in ("estimators_s", "flow_s", "apps_s")}}))
+    # 11. distribution: worlds of ranks on the card(s), each rank a process
+    dist_recs, fails, dist_s = distribution_phase(
+        torch, cfg, sift, dev, args.seed, smi, stream_frames, batch_out)
+    failures.extend(fails)
+    dist_out, dist_launches = dist_lines(dist_recs, smi, n_sm)
+    for line in dist_out:
+        print(json.dumps(line))
+    print(json.dumps({"phase_11_s": dist_s, "card": smi}))
+
+    def launches_distribution(name):
+        return {w: {fn: v[name] for fn, v in fns.items()}
+                for w, fns in dist_launches.items()}
 
     def lib_launches(name):
         apps = lib["apps"]
@@ -3791,6 +4500,7 @@ def main(argv=None) -> int:
          "launches_frontend_cli":
              fe_extra["matchinglib_test_akaze"]["launches"]["fast_nms"],
          "launches_library": lib_launches("fast_nms"),
+         "launches_distribution": launches_distribution("fast_nms"),
          "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
          "bound_pipe": k1_pipe if k1_bound[1] == "operations" else "memory",
@@ -3818,6 +4528,7 @@ def main(argv=None) -> int:
          "launches_frontend_cli":
              fe_extra["matchinglib_test_akaze"]["launches"]["knn2"],
          "launches_library": lib_launches("knn2"),
+         "launches_distribution": launches_distribution("knn2"),
          "max_abs_err_16w": k2a16["max_abs_err"],
          "shape_16w": k2a16["shape"],
          "ms_16w": k2a16["ms"], "plain_ms_16w": k2a16["plain_ms"],
@@ -3855,6 +4566,7 @@ def main(argv=None) -> int:
          "launches_frontend": fe_launches("knn2_l2"),
          "launches_frontend_batch": fe_batch_launches("knn2_l2"),
          "launches_library": lib_launches("knn2_l2"),
+         "launches_distribution": launches_distribution("knn2_l2"),
          "d2": {**k2b_d2, "lk_coordinates": lib["flow"]["k2b_d2_coords"]},
          "ms": k2b["sift"][0]["ms"], "plain_ms": k2b["sift"][0]["plain_ms"],
          "device_ms": k2b["sift"][0]["device_ms"],

@@ -26,8 +26,13 @@ many kernels for any number of pairs.
 
 Fixed cameras and intrinsics are gauge-fixed by zeroing their Jacobian
 columns; the two-view scale gauge is removed afterwards (||t|| = 1).
-The JAX package's ``axis_name`` (a ``psum`` over a mesh axis of point
-shards) is not ported.
+
+``bundle_adjust(..., group=...)`` is the JAX package's ``axis_name``:
+each rank of a ``torch.distributed`` group holds a block of the points
+and their observations, and every sum over points (the cost's numerator
+and denominator, U, g_c, the Schur sum and the rhs sum) is all-reduced
+over the group, at the JAX package's ``psum`` points. The reduced camera
+system is then the same on every rank, and so is its solve.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import torch
 
 from matchinglib_poselib_torch.config import BAConfig
 from matchinglib_poselib_torch.ops import geometry as geo
+from matchinglib_poselib_torch.parallel import mesh as pmesh
 
 # camera parameter block (local deltas around the current estimate):
 #   [0:3]   so(3) rotation delta (right-multiplied: R <- R expm[w])
@@ -237,6 +243,7 @@ def bundle_adjust(
     refine_structure: bool = True,
     refine_motion: bool = True,
     intrinsics_cols: tuple[int, ...] | None = None,
+    group=None,
 ) -> BAResult:
     """Masked dense-block sparse BA (Schur-eliminated LM).
 
@@ -249,6 +256,13 @@ def bundle_adjust(
     or per pair. Pair axis: obs (Q, P, C, 2), vis (Q, P, C), R, t, K,
     dist (Q, C, ...), X (Q, P, 3) give every field of the result per
     pair; free_cams stays (C,).
+
+    group: a ``torch.distributed`` process group over which the points
+    are sharded (this rank's obs, vis and X are its block; the cameras
+    are the same on every rank). Each sum over points is all-reduced
+    over it (5 all-reduces per LM iteration, 2 for the initial cost),
+    and the cameras come out the same on every rank; ``points`` stays
+    this rank's block. None: no collective, the single-process result.
     """
     P, C = vis.shape[-2:]
     batch = vis.shape[:-2]
@@ -277,11 +291,16 @@ def bundle_adjust(
             [param_free[:, :DOF_POSE],
              intr[None, :].expand(C, DOF_FULL - DOF_POSE)], dim=1)
 
+    def allsum(x):
+        """x summed over the group's ranks; x itself without a group."""
+        return x if group is None else pmesh.all_reduce(x, group)
+
+    n_vis = torch.clamp(allsum(torch.sum(visf, dim=(-2, -1))), min=1.0)
+
     def cost_at(Rc, tc, Kc, distc, Xc):
         r = _project(Xc, Rc, tc, Kc, distc) - obs
         c = _robust_cost(torch.sum(r * r, dim=-1), delta2, robust) * visf
-        return torch.sum(c, dim=(-2, -1)) / torch.clamp(
-            torch.sum(visf, dim=(-2, -1)), min=1.0)
+        return allsum(torch.sum(c, dim=(-2, -1))) / n_vis
 
     def pick(accept, new, old):
         return torch.where(accept.reshape(accept.shape + (1,) * (
@@ -304,14 +323,14 @@ def bundle_adjust(
         # that torch.einsum would arrange otherwise for a single pair than
         # for a batch are products of matrices laid out once, so that each
         # pair's sums run in the same order for any number of pairs
-        U = torch.einsum("...pcri,...pc,...pcrj->...cij", Jc, w, Jc)
+        U = allsum(torch.einsum("...pcri,...pc,...pcrj->...cij", Jc, w, Jc))
         V = torch.einsum("...pcri,...pc,...pcrj->...pij", Jx, w, Jx)
         Wb = torch.einsum("...pcri,...pc,...pcrj->...pcij", Jc, w, Jx)
         rw = r * w[..., None]
-        g_c = -(Jc.transpose(-4, -3).reshape(batch + (C, P * 2, D))
-                .transpose(-1, -2)
-                @ rw.transpose(-3, -2).reshape(batch + (C, P * 2, 1)))[
-                    ..., 0]
+        g_c = -allsum((Jc.transpose(-4, -3).reshape(batch + (C, P * 2, D))
+                       .transpose(-1, -2)
+                       @ rw.transpose(-3, -2).reshape(batch + (C, P * 2, 1)))[
+                           ..., 0])
         g_x = -torch.einsum("...pcri,...pc,...pcr->...pi", Jx, w, r)
         # Marquardt damping lam * diag(max(diag, 1)): scale-invariant over
         # mixed-magnitude parameters, and fixed (zeroed) columns stay
@@ -323,17 +342,18 @@ def bundle_adjust(
         # f32 cancellation, and the Schur complement then is not positive
         # definite. No error read: nothing waits on the host
         Vinv = torch.linalg.inv_ex(V + lam_b * _diag_floor(V))[0]
-        # Schur complement S = blockdiag(Ud) - sum_p W_p V_p^-1 W_p^T
+        # Schur complement S = blockdiag(Ud) - sum_p W_p V_p^-1 W_p^T: the
+        # point sum is reduced over the group before Ud joins it
         WVi = torch.einsum("...pcij,...pjk->...pcik", Wb, Vinv)
-        S = (torch.einsum("cd,...cij->...cidj", eye_c, Ud)
-             - torch.einsum("...pcik,...pdlk->...cidl", WVi, Wb)).reshape(
-                 batch + (C * D, C * D))
+        S_off = allsum(torch.einsum("...pcik,...pdlk->...cidl", WVi, Wb))
+        S = (torch.einsum("cd,...cij->...cidj", eye_c, Ud) - S_off).reshape(
+            batch + (C * D, C * D))
         nb = len(batch)
         WVi_u = WVi.permute(*range(nb), nb + 1, nb + 2, nb + 3, nb).reshape(
             batch + (C * D, 3 * P))  # (c i, k p)
-        rhs = g_c.reshape(batch + (C * D,)) - (
-            g_x.transpose(-1, -2).reshape(batch + (1, 3 * P))
-            @ WVi_u.transpose(-1, -2))[..., 0, :]
+        rhs = g_c.reshape(batch + (C * D,)) - allsum(
+            (g_x.transpose(-1, -2).reshape(batch + (1, 3 * P))
+             @ WVi_u.transpose(-1, -2))[..., 0, :])
         dcam = _chol_solve(S, rhs).reshape(batch + (C, D)) * param_free
         Wb_u = Wb.permute(*range(nb), nb, nb + 3, nb + 1, nb + 2).reshape(
             batch + (P * 3, C * D))  # (p j, c i)

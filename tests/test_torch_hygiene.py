@@ -197,11 +197,11 @@ def test_host_layer_and_clis_run_without_importing_jax(tmp_path):
 
 def test_library_layer_runs_without_importing_jax(tmp_path):
     """A fresh interpreter imports ``ops.optflow``, ``apps.ros_interface``,
-    ``entry`` and the example, runs each on the CPU at a tiny size (LK
-    flow with LKOF and ALKOF, the node over a frame plain and with
-    stereoRef, ``entry(device="cpu")``'s step, the example on a written
-    stereo directory, a ``trace``) and never imports jax or the JAX
-    package."""
+    ``entry``, the example and ``parallel.*``, runs each on the CPU at a
+    tiny size (LK flow with LKOF and ALKOF, the node over a frame plain
+    and with stereoRef, ``entry(device="cpu")``'s step, the example on a
+    written stereo directory, a ``trace``, ``dryrun_multichip`` in a gloo
+    world of 1) and never imports jax or the JAX package."""
     code = textwrap.dedent(f"""
         import contextlib, io, pathlib, sys
         import numpy as np, torch
@@ -211,6 +211,8 @@ def test_library_layer_runs_without_importing_jax(tmp_path):
         from matchinglib_poselib_torch.apps import ros_interface
         from matchinglib_poselib_torch.examples import match_and_pose
         from matchinglib_poselib_torch.ops import optflow
+        from matchinglib_poselib_torch.parallel import ba, matching, mesh
+        from matchinglib_poselib_torch.parallel import stream
         from matchinglib_poselib_torch.utils import profiling
         d = pathlib.Path({str(tmp_path)!r})
         pairs, K, R, t = chip_smoke.render_sequence(0, 2, 320, 240)
@@ -238,6 +240,13 @@ def test_library_layer_runs_without_importing_jax(tmp_path):
         with contextlib.redirect_stdout(out):
             assert match_and_pose.main([str(d / "imgs")], device="cpu") == 0
         assert "matches" in out.getvalue() and "inliers" in out.getvalue()
+        import torch.distributed as dist
+        dist.init_process_group("gloo", store=dist.FileStore(
+            str(d / "store"), 1), rank=0, world_size=1)
+        res = entry.dryrun_multichip(device="cpu")
+        assert res.mesh_shape == (1, 1) and res.knn_matched == 64
+        assert res.R.shape == (2, 3, 3)
+        dist.destroy_process_group()
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m.startswith("matchinglib_poselib_tpu")]
         assert not bad, bad
@@ -253,6 +262,8 @@ def test_library_layer_runs_without_importing_jax(tmp_path):
 @pytest.mark.parametrize("module", [
     "ops/optflow.py", "apps/ros_interface.py", "entry.py",
     "examples/match_and_pose.py", "utils/profiling.py", "apps/common.py",
+    "parallel/mesh.py", "parallel/matching.py", "parallel/ba.py",
+    "parallel/stream.py",
 ])
 def test_library_layer_picks_no_device_on_its_own(module):
     """The library layer's entry points run on the device they are given:
