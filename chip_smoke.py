@@ -9,8 +9,9 @@ Phases (any failure exits non-zero):
      included, against the plain version of the input zero-padded by
      3 + r: on the scene's images at (1, 512, 1392) and (2, 512, 1392) and
      at the ragged shapes and radii of ``FAST_NMS_PADDED``; equal up to f32
-     ties inside an NMS window (0 expected); radius 6 and a negative
-     threshold must raise on the card; one kernel per call;
+     ties inside an NMS window (0 expected); radius 6 must raise on the
+     card; a negative threshold bit-exact at (1, 512, 1392); one kernel
+     per call;
   3. fused binary 2-NN kernel (tensor-core b1 AND-popc product) vs its
      plain version at 2048 x 2048 on the scene's ORB descriptors, xy_mode
      0, 1 and 2, with ~10% invalid columns and planted ties: bit-exact;
@@ -126,10 +127,11 @@ Phases (any failure exits non-zero):
      2048 on the scene's 512-bit ring (BRISK) descriptors, xy_mode 0, 1
      and 2 with ~10% invalid columns and planted ties, at ``KNN2_RAGGED``
      x 2, 4 and 16 words, on the extreme pairs of the 512-bit key (an
-     all-zero row against an all-ones column: distance 512 exact), 17
-     words refused; K2b at ``KNN2_L2_RAGGED`` x D = 200, 120, 80, 48; K1
-     against its zero-padded plain version at every pixel of each pyramid
-     level of the scene (levels 2-4), radius 0 and 3; then
+     all-zero row against an all-ones column: distance 512 exact), and at
+     17 words (64 x 64 random words); K2b at ``KNN2_L2_RAGGED`` x D = 200,
+     120, 80, 48; K1 against its zero-padded plain version at every pixel
+     of each pyramid level of the scene (levels 2-4), radius 0 and 3;
+     then
      every row of ``frontend_rows`` (HARRIS, GFTT, STAR, MSD, MSER and
      pyramid ORB / BRISK at 4 levels with ORB; KAZE/KAZE; AKAZE/AKAZE;
      FAST t=12 with BRISK, FREAK, RIFF, BOLD, LATCH, BGM, BINBOOST_64 /
@@ -151,33 +153,32 @@ Phases (any failure exits non-zero):
      a ``frontend`` line per row with the card's name and power limit,
      and the phase's wall seconds.
   10. the library layer (``library_kernel_checks``, ``library_phase``):
-     K2b against its plain version at ``KNN2_L2_RAGGED`` x D = 2 and 3,
-     and its times at 2048 x 2048 x 2 on pixel coordinates; the four
-     library estimators (fundamental 7pt and 8pt, rotation-only,
-     no-motion, QDEGSAC) on the flagship's card correspondences,
-     normalized, and on a planted pure rotation (``planted_rotation``),
-     seeded explicit streams, each on the card and on the CPU: the F rows
-     by ``check_f_row`` (the same samples, the card's mask its model's
-     rescoring on the CPU, its inliers >= 99% of the CPU's; each
-     hypothesis's distance from its sample's float64 solve and its
-     residual reported on both devices), the others' inlier masks on >= 99% of
-     slots (no-motion's equal), R within 1e-4, QDEGSAC's decision equal
-     (true on the planted rotation) and its E's pose within phase 4d's
-     bars; ``lk_flow`` from the left image of frame 1 to itself
-     shifted by (6, -4) px at the flagship's 2048 keypoints (status on >=
-     80%, median error < 0.25 px), LKOF (K2b at D = 2, once) and ALKOF
-     (K2a guided, once) from frame 1's left image to frame 2's, card vs
-     CPU (flow within 0.02 px and status on >= 99%, masks and match
+     K2b against its plain version at ``KNN2_L2_RAGGED`` x D = 2 and 3, and
+     its times at 2048 x 2048 x 2 on pixel coordinates; the four library
+     estimators (fundamental 7pt and 8pt, rotation-only, no-motion,
+     QDEGSAC) on the flagship's card correspondences, normalized, and on a
+     planted pure rotation (``planted_rotation``), seeded explicit streams,
+     each on the card and on the CPU: the F rows by ``check_f_row`` (the
+     same samples, the card's mask its model's rescoring on the CPU, its
+     inliers >= 99% of the CPU's; each hypothesis's distance from its
+     sample's float64 solve and its residual reported on both devices, and
+     for 8pt the batched essential 8pt's card-vs-CPU distance), every row's
+     inlier mask on >= 99% of slots (no-motion's equal), R within 1e-4,
+     QDEGSAC's decision equal (true on the planted rotation) and its E's
+     pose within phase 4d's bars; ``lk_flow`` from the left image of frame
+     1 to itself shifted by (6, -4) px at the flagship's 2048 keypoints
+     (status on >= 80%, median error < 0.25 px), LKOF (K2b at D = 2, once)
+     and ALKOF (K2a guided, once) from frame 1's left image to frame 2's,
+     card vs CPU (flow within 0.02 px and status on >= 99%, masks and match
      slots on >= 99% outside near ties of 1 px^2), K2b against its plain
      version at D = 2 on those coordinates; ``MatchingPoselibNode`` on
-     frames 1-3, plain and with stereoRef + evStepStereoStable = 2
-     (seeded streams), each pose within the accuracy bars, the CPU node
-     fed the card's correspondences within phase 4d's bars and the same
-     republish pattern; ``entry()``'s step under ``utils.profiling.trace``
-     (a non-empty trace file); the example on frames 1-3 as PNGs;
-     ``library`` lines with ms per call, host syncs and device ops, the
-     card's name and power limit, and the phase's wall seconds.
-
+     frames 1-3, plain and with stereoRef + evStepStereoStable = 2 (seeded
+     streams), each pose within the accuracy bars, the CPU node fed the
+     card's correspondences within phase 4d's bars and the same republish
+     pattern; ``entry()``'s step under ``utils.profiling.trace`` (a
+     non-empty trace file); the example on frames 1-3 as PNGs; ``library``
+     lines with ms per call, host syncs and device ops, the card's name and
+     power limit, and the phase's wall seconds.
   11. distribution (``distribution_phase``), each rank a process of its
      own that loads phase 1's kernels (``dist_rank``, ``run_world``; 300 s
      per world at most): (a) a world of 1 over NCCL on cuda:0, (b) a world
@@ -207,6 +208,30 @@ Phases (any failure exits non-zero):
      in the collectives and their count; launches, host syncs, device ops
      and busy ms; BA's all-reduces per LM iteration) with the card's name
      and power limit, and the phase's wall seconds.
+
+  12. the kernels over the JAX package's whole input domain
+     (``domains_phase``): K1 at t = -12/255 and -1/255 (its own
+     instantiation), radius 0 and 3, at every pixel of the scene's (1, 512,
+     1392) and (2, 512, 1392) stacks and of a half-flat image against the
+     zero-padded plain version, max abs err 0 and no tie mismatch; K2a with
+     the scene's 2048 right-image ORB descriptors against seeded maps of
+     2,097,153, 4,194,304 and 16,781,312 rows (8 words) and its BRISK ones
+     against 1,048,577 and 8,388,609 rows (16 words), the left image's
+     descriptors planted past the column-field and launch boundaries,
+     exact duplicates on both sides of a slice and a launch boundary,
+     unguided and at xy_mode 1 and 2: 64 query rows bit-exact against the
+     plain version chunk by chunk (``plain_chunked``), the planted matches
+     found again; K2a at 17, 24, 32 and 64 words at 2048 x 2048,
+     ``KNN2_RAGGED`` and the key's extreme pairs, and on unaligned views,
+     bit-exact; K2b at D = 641, 1024 and 2048 at 2048 x 2048 and
+     ``KNN2_L2_RAGGED`` at phase 3b's bars, and through 3 column chunks;
+     ``sharded_match`` in a world of one over NCCL against the
+     16,781,312-row map (every field of every row equal to the plain
+     search and the JAX package's merge rule) and against 65,536 float
+     rows of 1024 (phase 11's bars). Launches per call, device ms and the
+     bound per launch of each new shape (``domains`` lines and the
+     ``domains`` key of each kernel in the ``kernels`` line), and the
+     phase's wall seconds.
 
 Prints a JSON ``kernels`` line, one JSON ``step`` line per path, the
 card's name and power limit, and as its last line
@@ -447,15 +472,17 @@ def _cuda_ms(torch, fn, iters=20, warm=3):
     return start.elapsed_time(end) / iters
 
 
-def _device_profile(torch, fn, iters=10, tries=DEVICE_PROFILE_TRIES):
+def _device_profile(torch, fn, iters=10, tries=DEVICE_PROFILE_TRIES,
+                    name=None):
     """(device ms, device ops) per call of `fn`, from torch.profiler: the
-    summed time of every kernel it launches, which unlike CUDA events
-    around back-to-back calls leaves out the gaps where the card waits for
-    the host to launch, and the number of those kernels. Now and then a
-    trace records no kernel at all, or drops one (a count that is not a
-    whole number per call); it is taken again, up to `tries` traces. If
-    none records a kernel, (None, None) (not measured); if each drops one,
-    the last trace's numbers."""
+    summed time of every kernel it launches (or only of those whose name
+    holds `name`), which unlike CUDA events around back-to-back calls
+    leaves out the gaps where the card waits for the host to launch, and
+    the number of those kernels. Now and then a trace records no kernel
+    at all, or drops one (a count that is not a whole number per call);
+    it is taken again, up to `tries` traces. If none records a kernel,
+    (None, None) (not measured); if each drops one, the last trace's
+    numbers."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -468,7 +495,8 @@ def _device_profile(torch, fn, iters=10, tries=DEVICE_PROFILE_TRIES):
                 fn()
             torch.cuda.synchronize()
         device = [e for e in prof.key_averages()
-                  if e.device_type.name == "CUDA"]
+                  if e.device_type.name == "CUDA"
+                  and (name is None or name in e.key)]
         ms = sum(e.self_device_time_total for e in device) / 1e3 / iters
         count = sum(e.count for e in device)
         if ms > 0:
@@ -2515,12 +2543,12 @@ def frontend_kernel_checks(torch, knn2, features, cfg, det, i1, i2, seed):
     """Phase 9's kernel checks: K2a bit-exact against its plain version at
     2048 x 2048 on the scene's 512-bit ring (BRISK) descriptors, xy_mode 0,
     1 and 2 (``knn2_inputs``), at ``KNN2_RAGGED`` x 2, 4 and 16 words, on
-    the extreme pairs of the 512-bit key (``knn2_extreme_cases``), and 17
-    words refused; K2b at ``KNN2_L2_RAGGED`` x FRONTEND_L2_DEPTHS; K1
-    against its zero-padded plain version (``check_fast_nms``) at every
-    pixel of each pyramid level of the scene, radius 0 and 3. Returns
-    (record with K2a's 16-word times, the cases at 2048 x 2048 by
-    xy_mode)."""
+    the extreme pairs of the 512-bit key (``knn2_extreme_cases``), and at
+    17 words on 64 x 64 random words; K2b at ``KNN2_L2_RAGGED`` x
+    FRONTEND_L2_DEPTHS; K1 against its zero-padded plain version
+    (``check_fast_nms``) at every pixel of each pyramid level of the
+    scene, radius 0 and 3. Returns (record with K2a's 16-word times, the
+    cases at 2048 x 2048 by xy_mode)."""
     rng = np.random.default_rng(seed + 5)
     dev = i1.device
     ring = cfg.DescriptorConfig(kind="BRISK")
@@ -2537,13 +2565,17 @@ def frontend_kernel_checks(torch, knn2, features, cfg, det, i1, i2, seed):
         check_knn2_ragged(torch, knn2, knn2_ragged_cases(
             torch, np.random.default_rng(seed + 6 + width), dev, width))
     check_knn2_extreme(torch, knn2, knn2_extreme_cases(torch, dev))
-    try:
-        wide = torch.zeros((4, 17), dtype=torch.int32, device=dev)
-        knn2.knn2(wide, wide, torch.ones(4, dtype=torch.bool, device=dev))
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("knn2: 17 words on the card did not raise")
+    # 17 words: the runtime-width kernel, bit-exact (phase 12 holds it at
+    # every shape)
+    wide = torch.from_numpy(rng.integers(-2**31, 2**31, (2, 64, 17))
+                            .astype(np.int32)).to(dev)
+    ones = torch.ones(64, dtype=torch.bool, device=dev)
+    for name, g, w in zip(("d_best", "d_second", "idx"),
+                          knn2.knn2(wide[0], wide[1], ones),
+                          knn2.knn2_plain(wide[0], wide[1], ones)):
+        if not torch.equal(g, w):
+            raise AssertionError(f"knn2 17 words: {name} differs from the "
+                                 "plain version")
     rec["k2b_max_abs_err"] = check_knn2_l2_ragged(
         torch, knn2, knn2_l2_ragged_cases(
             torch, np.random.default_rng(seed + 7), dev,
@@ -2917,16 +2949,20 @@ def check_f_row(torch, robust, name, logs, res, cpu, inp_cpu):
     """A robust F row's card result against the CPU's: the same samples in
     every batch both ran; the card's inlier mask equal to the CPU's
     rescoring of the card's model on >= 99% of the slots; the card's
-    inliers >= 99% of the CPU's. `logs`: the card's and the CPU's batches
-    (``_recording``). The hypotheses themselves are reported, not held:
-    the minimal solves take the eigenvector of A^T A, whose float32
-    forward error on these ill-conditioned samples is the eigensolver's
-    (cuSOLVER's batched float32 eigh lies ~40x farther from the float64
-    solve than LAPACK's here, ``chip_probes/f_degenerate_samples.py``):
-    each hypothesis's distance from the float64 solve of its sample (unit
-    norm, up to sign; 7pt: the nearest of the sample's float64 roots) and
-    its residual on its sample, percentiles 50 / 90, on both devices.
-    Returns (record, failures)."""
+    inliers >= 99% of the CPU's (``library_estimators`` also holds the
+    masks, as for the other estimators). `logs`: the card's and the CPU's
+    batches (``_recording``). The hypotheses themselves are reported, not
+    held: the minimal solves take the eigenvector of A^T A, whose forward
+    error on these ill-conditioned samples is the eigensolver's (the
+    card's batched eigh runs in float64 since cuSOLVER's float32 one lay
+    ~40x farther from the float64 solve than LAPACK's here,
+    ``chip_probes/f_degenerate_samples.py``): each hypothesis's distance
+    from the float64 solve of its sample (unit norm, up to sign; 7pt: the
+    nearest of the sample's float64 roots) and its residual on its
+    sample, percentiles 50 / 90, on both devices. For the 8pt row also,
+    reported: the batched essential 8pt (``solvers.solve_8pt``) on the
+    same samples, card vs CPU and each against float64. Returns (record,
+    failures)."""
     fails = []
     log_c, log_p = logs
     nb = min(len(log_c), len(log_p))
@@ -2965,6 +3001,22 @@ def check_f_row(torch, robust, name, logs, res, cpu, inp_cpu):
            "residual_cpu": pct(_sample_residuals(torch, s1, s2, Mp, vp)),
            "rescored_mask_agree": float(
                (rescored == res.inlier_mask.cpu()).float().mean())}
+    if name.endswith("8pt"):
+        from matchinglib_poselib_torch.ops import solvers
+
+        dev = res.model.device
+        units = {k: _unit_models(solvers.solve_8pt(*(
+            x.to(dev) if k == "card" else x.double() if k == "f64" else x
+            for x in (s1, s2)))[0].cpu().numpy())
+            for k in ("card", "cpu", "f64")}
+
+        def apart(a, b):
+            return pct(np.minimum(np.linalg.norm(a - b, axis=1),
+                                  np.linalg.norm(a + b, axis=1)))
+        rec["essential_8pt"] = {
+            "card_vs_cpu": apart(units["card"], units["cpu"]),
+            "card_vs_f64": apart(units["card"], units["f64"]),
+            "cpu_vs_f64": apart(units["cpu"], units["f64"])}
     if not same:
         fails.append("the card and the CPU drew other samples")
     if rec["rescored_mask_agree"] < LIB_AGREE:
@@ -2981,9 +3033,10 @@ def library_estimators(torch, dev, corr, K, robust_cfg, seed):
     8pt, rotation-only, no-motion, QDEGSAC) on the flagship's card
     correspondences, normalized, and on a planted pure rotation, with
     seeded explicit streams, each on `dev` and on the CPU. The F rows are
-    held sample by sample (``check_f_row``); the others by their masks
-    (>= 99%, no-motion's equal), the rotation models (1e-4), QDEGSAC's
-    decision and its E's pose. Returns ({row: record}, failures)."""
+    held sample by sample (``check_f_row``: their inliers >= 99% of the
+    CPU's) and, as every row, by their masks (>= 99%, no-motion's equal);
+    the rotation models (1e-4), QDEGSAC's decision and its E's pose.
+    Returns ({row: record}, failures)."""
     from matchinglib_poselib_torch.ops import geometry as geo, robust
 
     failures = []
@@ -3064,8 +3117,7 @@ def library_estimators(torch, dev, corr, K, robust_cfg, seed):
             if name == "nomotion":
                 if not np.array_equal(m_c, m_p):
                     failures.append(f"{row}: masks not equal")
-            elif not name.startswith("fundamental") \
-                    and rec["mask_agree"] < LIB_AGREE:
+            elif rec["mask_agree"] < LIB_AGREE:
                 failures.append(f"{row}: inlier masks agree on "
                                 f"{rec['mask_agree']}")
             if name == "qdegsac":
@@ -4113,6 +4165,565 @@ def dist_lines(recs, smi, n_sm):
     return lines, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the three kernels over the JAX package's whole input domain
+# ---------------------------------------------------------------------------
+
+# K1 below 0: thresholds in [0, 1] intensity units, NMS radii
+DOMAIN_K1_THRESHOLDS = (-12.0 / 255.0, -1.0 / 255.0)
+DOMAIN_K1_RADII = (0, 3)
+# K1 per pixel at t < 0: the dark side's own argument, -d - t, is 16 FADD
+# more on the fp32 pipe; the compare / integer pipe is unchanged
+K1_FP32_OPS_NEG = K1_FP32_OPS + 16
+# K2a's maps (words, rows): past one column slice of a launch at the
+# width's first key layout (2^21 at 8 words, 2^20 at 16), past one launch
+# (2^24, 2^23)
+DOMAIN_MAPS = ((8, 2_097_153), (8, 4_194_304), (8, 16_781_312),
+               (16, 1_048_577), (16, 8_388_609))
+DOMAIN_SHARDED_MAP = (8, 16_781_312)  # sharded_match's binary map
+DOMAIN_CHECK_ROWS = 64  # query rows held against the chunked plain search
+DOMAIN_PLAIN_COLS = 1 << 20  # columns per chunk of the plain search
+DOMAIN_PLAIN_ROWS = 256  # query rows per block of a whole-map plain search
+DOMAIN_INVALID = 0.05  # share of invalid map rows
+DOMAIN_DUPS = 4  # queries copied onto both sides of each boundary
+DOMAIN_STRONG = 30  # a pair match this close must come back from the map
+DOMAIN_WIDE_WORDS = (17, 24, 32, 64)
+DOMAIN_L2_DEPTHS = (641, 1024, 2048)
+DOMAIN_L2_CHUNK = 1000  # a K2b column chunk that splits 2048 columns
+DOMAIN_FLOAT_MAP = (65_536, 1024)  # sharded_match's float map: rows, D
+DOMAIN_TIMED_RUNS = 3
+
+
+def _launches(wrapper, fn):
+    """Launches of `wrapper` in one call of `fn`."""
+    before = wrapper.launches
+    fn()
+    return wrapper.launches - before
+
+
+def k2a_bound(n1, n2, words, guided, n_sm):
+    """Phase 3's K2a bound at (n1, n2, words): the lesser of the POPC
+    route and the tensor-core route (the b1 product, the integer and the
+    fp32 epilogue, side by side), against the bytes. Returns (ms, by)."""
+    sm_clk_s = n_sm * SM_CLOCK_HZ
+    pairs = n1 * n2
+    nbytes = (n1 + n2) * 4 * words + n2 + n1 * 12
+    popc = _bound(nbytes, pairs * words / (POPC_PER_CLK_SM * sm_clk_s))
+    tc = _bound(nbytes, pairs / sm_clk_s * max(
+        2 * 32 * words / BMMA_OPS_PER_CLK_SM,
+        KNN2_INT_OPS[guided] / INT32_PER_CLK_SM,
+        KNN2_FP32_OPS[guided] / FP32_PER_CLK_SM))
+    return min(popc, tc)
+
+
+def k2b_bound(n1, n2, depth, guided, n_sm):
+    """Phase 3b's K2b bound: the product, the norms and the epilogue's 4
+    fp32 ops per pair at the fp32 peak, the gate's 5 per pair on top,
+    against the bytes. Returns (ms, by)."""
+    ops_s = (2 * n1 * n2 * depth + 2 * (n1 + n2) * depth
+             + 4 * n1 * n2) / FP32_FLOP_S
+    if guided:
+        ops_s += n1 * n2 * KNN2_L2_GATE_FP32_OPS / (
+            FP32_PER_CLK_SM * n_sm * SM_CLOCK_HZ)
+    return _bound((n1 + n2) * depth * 4 + n2 + n1 * 12, ops_s)
+
+
+def _k1_flat(torch, rng, dev):
+    """A (1, 96, 200) image whose left half is flat (a region that scores
+    16 |t| at every pixel at t < 0, where the NMS decides on ties) and
+    whose right half is uniform noise."""
+    img = np.full((1, 96, 200), 0.5, np.float32)
+    img[:, :, 100:] = rng.random((1, 96, 100), np.float32)
+    return torch.from_numpy(img).to(dev)
+
+
+def domain_k1(torch, fast_nms, scene, dev, seed, n_sm):
+    """K1 at t < 0 (its own instantiation): every pixel of the scene's (1,
+    H, W) and (2, H, W) stacks and of a half-flat image against the plain
+    version of the input zero-padded by 3 + r (``check_fast_nms``), at
+    each of DOMAIN_K1_THRESHOLDS x DOMAIN_K1_RADII: max abs err 0 and no
+    tie mismatch; device ms, kernels per call and the bound at (1, H, W),
+    t = -12/255, r = 3. Returns (record, failures)."""
+    one = scene[0]
+    flat = _k1_flat(torch, np.random.default_rng(seed + 120), dev)
+    rec, fails = {"checks": []}, []
+    for t in DOMAIN_K1_THRESHOLDS:
+        for r in DOMAIN_K1_RADII:
+            for imgs, least in ((one, 1000), (scene[1], 1000), (flat, 10)):
+                err, ties = check_fast_nms(torch, fast_nms, imgs, t, r,
+                                           min_corners=least)
+                rec["checks"].append([list(imgs.shape), t, r, err, ties])
+                if err or ties:
+                    fails.append(f"fast_nms t={t} r={r} {tuple(imgs.shape)}"
+                                 f": max abs err {err}, {ties} tie "
+                                 "mismatches")
+    t, r = DOMAIN_K1_THRESHOLDS[0], 3
+    k = functools.partial(fast_nms.fast_nms_score, one, t, r)
+    p = functools.partial(fast_nms.fast_nms_score_plain, one, t, r)
+    rec.update(shape=list(one.shape), threshold=t, radius=r,
+               launches_per_call=_launches(fast_nms.fast_nms_score, k),
+               ms=_cuda_ms(torch, k), plain_ms=_cuda_ms(torch, p))
+    rec["device_ms"], rec["kernels_per_call"] = _device_profile(torch, k)
+    rec["plain_device_ms"] = _device_ms(torch, p)
+    if rec["launches_per_call"] != 1:
+        fails.append(f"fast_nms t={t}: {rec['launches_per_call']} launches "
+                     "per call, not 1")
+    n_px, sm_clk_s = one.numel(), n_sm * SM_CLOCK_HZ
+    pipes = {"fp32": n_px * K1_FP32_OPS_NEG / (FP32_PER_CLK_SM * sm_clk_s),
+             "compare/int": n_px * (K1_ALU_OPS + k1_window_ops(r))
+             / (INT32_PER_CLK_SM * sm_clk_s)}
+    pipe = max(pipes, key=pipes.get)
+    rec["bound_ms"], rec["bound_by"] = _bound(2 * n_px * 4, pipes[pipe])
+    rec["bound_pipe"] = pipe if rec["bound_by"] == "operations" else "memory"
+    rec["bound_pipes_ms"] = {k: v * 1e3 for k, v in pipes.items()}
+    return rec, fails
+
+
+def plain_chunked(torch, knn2, q, table, valid, pred=None, rad2=None,
+                  pts2=None, xy_mode=0):
+    """``knn2_plain`` of the rows of `q` against `table`, chunk by chunk
+    of DOMAIN_PLAIN_COLS columns on the card, the chunks merged by
+    ``knn2.merge_top2`` (ties to the lower columns)."""
+    outs = []
+    for c0 in range(0, table.shape[0], DOMAIN_PLAIN_COLS):
+        sl = slice(c0, c0 + DOMAIN_PLAIN_COLS)
+        d1, d2, i1 = knn2.knn2_plain(
+            q, table[sl], valid[sl], pred,
+            rad2[sl] if xy_mode == 2 else rad2,
+            pts2[sl] if xy_mode else None, xy_mode)
+        outs.append((d1, d2, torch.where(i1 >= 0, i1 + c0, -1)))
+    return knn2.merge_top2(*(torch.stack(x) for x in zip(*outs)))
+
+
+def domain_map(torch, knn2, n_rows, queries, plants, pred, seed, dev):
+    """A seeded map of `n_rows` random rows of the queries' width
+    (DOMAIN_INVALID of them invalid, at random positions in the image,
+    each with a random gate radius) holding a copy of every `plants`
+    descriptor at its keypoint's position, in the map's upper half and
+    its last rows; and, on both sides of the first launch's first slice
+    boundary and (past one launch) of the launch boundary, two exact
+    copies of one query at its predicted position (query 0 at the first
+    boundary, 1 at the second): the lower row must win. `queries`,
+    `plants`: (descriptors, keypoint xy); `pred` the queries' predicted
+    positions. Returns a dict of the map's tensors, the planted rows and
+    the boundaries."""
+    (q, _), (p, p_xy) = queries, plants
+    words = q.shape[1]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    table = torch.randint(-2**31, 2**31, (n_rows, words), generator=g,
+                          device=dev, dtype=torch.int64).to(torch.int32)
+    valid = torch.rand(n_rows, generator=g, device=dev) >= DOMAIN_INVALID
+    pts2 = torch.rand((n_rows, 2), generator=g, device=dev) * torch.tensor(
+        [WIDTH, HEIGHT], dtype=torch.float32, device=dev)
+    rad_c = (20.0 + 60.0 * torch.rand(n_rows, generator=g, device=dev)) ** 2
+    cap = knn2.max_columns(knn2.kernel_words(words))
+    bounds = [(min(n_rows, cap) + 7) // 8]  # the first slice boundary
+    if n_rows > cap:
+        bounds.append(cap)
+    dup_rows = np.array([b + o for b in bounds for o in (-1, 0)])
+    n_p = p.shape[0]
+    last = np.setdiff1d(np.arange(n_rows - n_p, n_rows),
+                        dup_rows)[-(n_p // 2):]
+    spread = np.setdiff1d(
+        np.linspace(n_rows // 2, last[0] - 1, n_p).astype(np.int64),
+        dup_rows)[:n_p - len(last)]
+    rows = np.concatenate([spread, last])
+    if len(np.unique(rows)) != n_p or np.isin(dup_rows, rows).any():
+        raise AssertionError(f"map of {n_rows}: planted rows collide")
+    prow = torch.from_numpy(rows).to(dev)
+    table[prow], valid[prow], pts2[prow] = p, True, p_xy
+    for j, b in enumerate(bounds):
+        table[b - 1:b + 1] = q[j]
+        valid[b - 1:b + 1] = True
+        pts2[b - 1:b + 1] = pred[j]
+    return {"table": table, "valid": valid, "pts2": pts2, "rad_c": rad_c,
+            "plant_rows": prow, "bounds": bounds, "words": words}
+
+
+def domain_check_rows(torch, m, strong, pair_idx, n_q):
+    """DOMAIN_CHECK_ROWS query rows to hold against the plain search: the
+    boundary duplicates' queries, the strong pair matches planted in the
+    highest rows (past the boundaries), evenly spaced queries after."""
+    dups = list(range(len(m["bounds"])))
+    hi = torch.where(strong, m["plant_rows"][pair_idx.clamp(min=0).long()],
+                     -1)
+    top = [int(i) for i in torch.argsort(hi, descending=True)[:32].cpu()
+           if int(hi[i]) >= 0]
+    rows = list(dict.fromkeys(dups + top))
+    for i in np.linspace(0, n_q - 1, DOMAIN_CHECK_ROWS).astype(int):
+        if len(rows) >= DOMAIN_CHECK_ROWS:
+            break
+        if int(i) not in rows:
+            rows.append(int(i))
+    return torch.tensor(rows, device=m["table"].device)
+
+
+def domain_map_checks(torch, knn2, m, queries, plants, pred, rad_q, n_sm):
+    """K2a over the map `m` (``domain_map``), unguided and at xy_mode 1
+    and 2: the DOMAIN_CHECK_ROWS rows of ``domain_check_rows`` bit-exact
+    against ``plain_chunked``; the boundary duplicates' lower row with
+    d_second == d_best == 0; unguided, every strong pair match (at most
+    DOMAIN_STRONG bits between the query and a left-image descriptor)
+    found again at a copy of that descriptor at the same distance. Launches
+    per call, the kernel's device ms and the bound per launch. Returns
+    (record, failures)."""
+    (q, _), (p, _) = queries, plants
+    table, valid, pts2 = m["table"], m["valid"], m["pts2"]
+    n_q, n_rows, words = q.shape[0], table.shape[0], m["words"]
+    label = f"knn2 {n_q} x {n_rows} x {words}w"
+    ones = torch.ones(p.shape[0], dtype=torch.bool, device=q.device)
+    pair_d, _, pair_idx = knn2.knn2(q, p, ones)
+    strong = pair_d <= DOMAIN_STRONG
+    strong[:len(m["bounds"])] = False
+    rows = domain_check_rows(torch, m, strong, pair_idx, n_q)
+    cap = knn2.max_columns(knn2.kernel_words(words))
+    rec = {"shape": [n_q, n_rows, 32 * words], "strong": int(strong.sum()),
+           "check_rows": len(rows), "bounds": m["bounds"]}
+    fails = []
+    for mode in (0, 1, 2):
+        r2 = rad_q if mode == 1 else m["rad_c"]
+        args = (q, table, valid) + ((pred, r2, pts2) if mode else ())
+        fn = functools.partial(knn2.knn2, *args, xy_mode=mode)
+        got = fn()
+        want = plain_chunked(torch, knn2, q[rows], table, valid,
+                             pred[rows] if mode else None,
+                             r2[rows] if mode == 1 else r2, pts2, mode)
+        for name, a, b in zip(("d_best", "d_second", "idx"), got, want):
+            if not torch.equal(a[rows], b):
+                fails.append(f"{label} xy_mode={mode}: {name} differs from "
+                             f"the chunked plain search in "
+                             f"{int((a[rows] != b).sum())} of {len(rows)} "
+                             "rows")
+        for j, b in enumerate(m["bounds"]):
+            if (int(got[2][j]) != b - 1 or float(got[0][j]) != 0.0
+                    or float(got[1][j]) != 0.0):
+                fails.append(f"{label} xy_mode={mode}: the duplicates at "
+                             f"rows {b - 1}, {b}: "
+                             f"{[float(x[j]) for x in got]}")
+        if mode == 0:
+            d_map, idx_map = got[0][strong], got[2][strong].long()
+            back = (d_map == pair_d[strong]) & torch.all(
+                table[idx_map.clamp(min=0)]
+                == p[pair_idx[strong].long()], dim=1) & (idx_map >= 0)
+            rec["strong_back"] = int(back.sum())
+            if not bool(back.all()):
+                fails.append(f"{label}: {int((~back).sum())} of "
+                             f"{int(strong.sum())} planted matches not found")
+        launches = [min(cap, n_rows - c0) for c0 in range(0, n_rows, cap)]
+        dev_ms, per_call = _device_profile(torch, fn, iters=3, name="knn2")
+        rec[mode] = {
+            "launches_per_call": _launches(knn2.knn2, fn),
+            "ms": _cuda_ms(torch, fn, iters=3, warm=1),
+            "kernels_per_call": per_call, "device_ms": dev_ms,
+            "bound_ms_per_launch": [k2a_bound(n_q, c, words, mode > 0,
+                                              n_sm)[0] for c in launches],
+            "bound_by": k2a_bound(n_q, launches[0], words, mode > 0,
+                                  n_sm)[1]}
+        if rec[mode]["launches_per_call"] != len(launches):
+            fails.append(f"{label} xy_mode={mode}: "
+                         f"{rec[mode]['launches_per_call']} launches, "
+                         f"{len(launches)} expected")
+    rec["bound_ms"] = sum(rec[0]["bound_ms_per_launch"])
+    return rec, fails
+
+
+def domain_wide(torch, knn2, dev, seed, n_sm):
+    """K2a at DOMAIN_WIDE_WORDS (its runtime-width kernel): bit-exact at
+    2048 x 2048 on random words with ~10% invalid columns, planted ties
+    and gates (``knn2_inputs``), at ``KNN2_RAGGED``, on the extreme pairs
+    of each width's key; and on 16-byte-unaligned (one word off)
+    contiguous views at 8 and 24 words. Device ms and the bound at 2048 x
+    2048 per width. Returns {words: record}."""
+    rng = np.random.default_rng(seed + 121)
+    n = 2048
+
+    def words(rows, w):
+        return torch.from_numpy(rng.integers(-2**31, 2**31, (rows, w),
+                                             dtype=np.int64)
+                                .astype(np.int32)).to(dev)
+
+    def xy():
+        return torch.from_numpy(np.stack(
+            [rng.uniform(0, WIDTH, n), rng.uniform(0, HEIGHT, n)], axis=1)
+            .astype(np.float32)).to(dev)
+
+    recs = {}
+    for w in DOMAIN_WIDE_WORDS:
+        cases = knn2_inputs(torch, rng, words(n, w), words(n, w), xy(), xy(),
+                            dev)
+        err = check_knn2(torch, knn2, cases)
+        check_knn2_ragged(torch, knn2, knn2_ragged_cases(
+            torch, np.random.default_rng(seed + 122 + w), dev, w))
+        check_knn2_extreme(torch, knn2, knn2_extreme_cases(torch, dev, w))
+        fn = functools.partial(knn2.knn2, *cases[0])
+        rec = {"shape": [n, n, 32 * w], "max_abs_err": err,
+               "launches_per_call": _launches(knn2.knn2, fn),
+               "ms": _cuda_ms(torch, fn)}
+        rec["device_ms"], rec["kernels_per_call"] = _device_profile(
+            torch, fn, name="knn2")
+        rec["bound_ms"], rec["bound_by"] = k2a_bound(n, n, w, False, n_sm)
+        recs[w] = rec
+    for w in (8, 24):
+        flat = words(2 * n * w + 1, 1).reshape(-1)
+        a = flat[1:n * w + 1].view(n, w)
+        b = flat[n * w + 1:].view(n, w)
+        if a.data_ptr() % 16 == 0 or not a.is_contiguous():
+            raise AssertionError("the unaligned view is aligned")
+        valid = torch.from_numpy(rng.random(n) > 0.1).to(dev)
+        for name, g, e in zip(("d_best", "d_second", "idx"),
+                              knn2.knn2(a, b, valid),
+                              knn2.knn2_plain(a, b, valid)):
+            if not torch.equal(g, e):
+                raise AssertionError(f"knn2 unaligned {w} words: {name} "
+                                     "differs from the plain version")
+        recs[f"unaligned_{w}w"] = "bit-exact"
+    return recs
+
+
+def domain_l2(torch, knn2, dev, seed, n_sm):
+    """K2b at DOMAIN_L2_DEPTHS (D > 640: the streamed query tile; D = 641
+    takes 4-byte copies): at 2048 x 2048 on random unit rows with planted
+    duplicates and gated rows (``knn2_l2_inputs``, ``check_knn2_l2``), at
+    ``KNN2_L2_RAGGED`` (``check_knn2_l2_ragged``), and at D = 1024 with
+    the wrapper's column chunk cut to DOMAIN_L2_CHUNK (3 launches merged
+    by ``merge_top2``). Device ms, kernels per call and the bound per
+    depth. Returns ({depth: record}, max abs err)."""
+    rng = np.random.default_rng(seed + 123)
+    n = 2048
+
+    def unit(depth):
+        x = rng.normal(size=(n, depth)).astype(np.float32)
+        return torch.from_numpy(x / np.linalg.norm(x, axis=1,
+                                                   keepdims=True)).to(dev)
+
+    def xy():
+        return torch.from_numpy(np.stack(
+            [rng.uniform(0, WIDTH, n), rng.uniform(0, HEIGHT, n)], axis=1)
+            .astype(np.float32)).to(dev)
+
+    recs, err = {}, check_knn2_l2_ragged(torch, knn2, knn2_l2_ragged_cases(
+        torch, np.random.default_rng(seed + 124), dev,
+        depths=DOMAIN_L2_DEPTHS))
+    for depth in DOMAIN_L2_DEPTHS:
+        cases, planted, gated = knn2_l2_inputs(torch, rng, unit(depth),
+                                               unit(depth), xy(), xy(), dev)
+        err = max(err, check_knn2_l2(torch, knn2, cases, planted, gated))
+        rec = {"shape": [n, n, depth]}
+        for m in (0, 1):
+            fn = functools.partial(knn2.knn2_l2, *cases[m], xy_mode=m)
+            r = {"ms": _cuda_ms(torch, fn),
+                 "plain_ms": _cuda_ms(torch, functools.partial(
+                     knn2.knn2_l2_plain, *cases[m], xy_mode=m)),
+                 "launches_per_call": _launches(knn2.knn2_l2, fn)}
+            r["device_ms"], r["kernels_per_call"] = _device_profile(torch,
+                                                                    fn)
+            r["bound_ms"], r["bound_by"] = k2b_bound(n, n, depth, m > 0,
+                                                     n_sm)
+            if r["launches_per_call"] != 1:
+                raise AssertionError(f"knn2_l2 D={depth}: "
+                                     f"{r['launches_per_call']} launches per "
+                                     "call, not 1")
+            rec[m] = r
+        recs[depth] = rec
+        if depth == 1024:
+            keep = knn2.L2_MAX_COLUMNS
+            knn2.L2_MAX_COLUMNS = DOMAIN_L2_CHUNK
+            try:
+                err = max(err, check_knn2_l2(torch, knn2, cases, planted,
+                                             gated))
+                rec["chunked_launches_per_call"] = _launches(
+                    knn2.knn2_l2, functools.partial(knn2.knn2_l2, *cases[0]))
+            finally:
+                knn2.L2_MAX_COLUMNS = keep
+    return recs, err
+
+
+def _sharded_reference(torch, knn2, q, table, vq, valid, binary, ratio):
+    """What ``sharded_match`` over a world of one is held to: the plain
+    search of every query against the whole map (binary: chunk by chunk
+    of DOMAIN_PLAIN_COLS columns, blocks of DOMAIN_PLAIN_ROWS queries),
+    the JAX package's merge rule for one shard (an invalid query (1e9,
+    1e9, 0), column -1 -> 0) and the cross-check on the best rows' plain
+    reverse search."""
+    plain = knn2.knn2_plain if binary else knn2.knn2_l2_plain
+    parts = []
+    for r0 in range(0, q.shape[0], DOMAIN_PLAIN_ROWS):
+        qs = q[r0:r0 + DOMAIN_PLAIN_ROWS]
+        parts.append(plain_chunked(torch, knn2, qs, table, valid) if binary
+                     else plain(qs, table, valid))
+    d1, d2, idx = (torch.cat(x) for x in zip(*parts))
+    d1 = torch.where(vq, d1, knn2.BIG)
+    d2 = torch.where(vq, d2, knn2.BIG)
+    best = torch.where(vq, idx.clamp(min=0), 0)
+    _, _, rev = plain(table[best.long()], q, vq)
+    keep = (vq & (d1 < knn2.BIG * 0.5) & (d1 < ratio * d2)
+            & (rev.clamp(min=0) == torch.arange(q.shape[0],
+                                                device=q.device)))
+    return {"idx": best, "distance": d1, "second_distance": d2,
+            "mask": keep}
+
+
+def _unit_rows(torch, g, rows, depth, dev):
+    """Seeded non-negative unit rows (SIFT-like) on the card."""
+    x = torch.abs(torch.randn((rows, depth), generator=g, device=dev))
+    return x / torch.linalg.norm(x, dim=1, keepdim=True)
+
+
+def domain_sharded(torch, knn2, m, queries, plants, dev, seed):
+    """``sharded_match`` in a world of one over NCCL (mesh 1 x 1, in this
+    process): the scene's right-image descriptors against the binary map
+    `m` (``domain_map``), every field of every row equal to
+    ``_sharded_reference``, the strong pair matches found again at their
+    distance; and 2048 x DOMAIN_FLOAT_MAP seeded non-negative unit rows
+    (half of the queries planted with 0.005 noise) within DIST_FLOAT_TOL
+    (1 + |d|), idx and mask equal where no near tie decides them, the
+    planted queries matched to their rows. ~5% of the queries invalid.
+    ms per call (DOMAIN_TIMED_RUNS after a warm one, host clock ending in
+    a sync) and launches per call. Returns (record, failures)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from matchinglib_poselib_torch.config import LOWE_RATIO
+    from matchinglib_poselib_torch.parallel import mesh as pmesh
+    from matchinglib_poselib_torch.parallel.matching import sharded_match
+
+    (q, _), (p, _) = queries, plants
+    g = torch.Generator(device=dev).manual_seed(seed + 125)
+    n_q = q.shape[0]
+    vq = torch.rand(n_q, generator=g, device=dev) >= DOMAIN_INVALID
+    fmap = _unit_rows(torch, g, *DOMAIN_FLOAT_MAP, dev)
+    fq = _unit_rows(torch, g, n_q, DOMAIN_FLOAT_MAP[1], dev)
+    planted = torch.arange(n_q // 2, device=dev)
+    frows = torch.linspace(0, DOMAIN_FLOAT_MAP[0] - 1, len(planted),
+                           device=dev).long()
+    noisy = torch.abs(fq[planted] + 0.005 * torch.randn(
+        fq[planted].shape, generator=g, device=dev))
+    fmap[frows] = noisy / torch.linalg.norm(noisy, dim=1, keepdim=True)
+    fvalid = torch.ones(DOMAIN_FLOAT_MAP[0], dtype=torch.bool, device=dev)
+    ones = torch.ones(p.shape[0], dtype=torch.bool, device=dev)
+    pair_d, _, _ = knn2.knn2(q, p, ones)
+    strong = (pair_d <= DOMAIN_STRONG) & vq
+    strong[:len(m["bounds"])] = False
+
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=DIST_RANK_TIMEOUT_S))
+    rec, fails = {}, []
+    try:
+        mesh = pmesh.make_mesh(1, device=dev)
+        calls = {
+            "binary": (functools.partial(sharded_match, mesh, q, m["table"],
+                                         vq, m["valid"]),
+                       (q, m["table"], m["valid"], True)),
+            "float": (functools.partial(sharded_match, mesh, fq, fmap, vq,
+                                        fvalid, binary=False),
+                      (fq, fmap, fvalid, False))}
+        for kind, (fn, (qq, table, valid, binary)) in calls.items():
+            wrapper = knn2.knn2 if binary else knn2.knn2_l2
+            res = fn()
+            got = {k: getattr(res, k) for k in DIST_MATCH_FIELDS}
+            ref = _sharded_reference(torch, knn2, qq, table, vq, valid,
+                                     binary, LOWE_RATIO)
+            label = f"sharded_match {kind} {n_q} x {tuple(table.shape)}"
+            if binary:
+                for k in DIST_MATCH_FIELDS:
+                    if not torch.equal(got[k], ref[k].to(got[k].dtype)):
+                        fails.append(f"{label}: {k} differs from the chunked "
+                                     "plain search in "
+                                     f"{int((got[k] != ref[k]).sum())} rows")
+                back = got["distance"][strong] == pair_d[strong]
+                rec["strong_back"] = [int(back.sum()), int(strong.sum())]
+                if not bool(back.all()):
+                    fails.append(f"{label}: planted matches not found")
+            else:
+                d, s = ref["distance"], ref["second_distance"]
+                tol = DIST_FLOAT_TOL * (1.0 + d.abs())
+                for k in ("distance", "second_distance"):
+                    if bool(((got[k] - ref[k]).abs() > tol).any()):
+                        fails.append(f"{label}: {k} off the plain search")
+                clear = (vq & (s - d > tol)
+                         & ((d - LOWE_RATIO * s).abs() > tol))
+                for k in ("idx", "mask"):
+                    if not torch.equal(got[k][clear], ref[k][clear]):
+                        fails.append(f"{label}: {k} differs from the plain "
+                                     "search away from near ties")
+                pv = planted[vq[planted]]
+                back = got["idx"][pv] == frows[vq[planted]]
+                rec["planted_back"] = [int(back.sum()), len(pv)]
+                if not bool(back.all()):
+                    fails.append(f"{label}: planted rows not found")
+            r = {"shape": [n_q, table.shape[0], table.shape[1]
+                           * (32 if binary else 1)],
+                 "launches_per_call": _launches(wrapper, fn)}
+            ms = []
+            for _ in range(DOMAIN_TIMED_RUNS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            r["ms"], r["ms_median"] = ms, float(np.median(ms))
+            r["kernel_device_ms"], r["kernels_per_call"] = _device_profile(
+                torch, fn, iters=3, name="knn2")
+            rec[kind] = r
+    finally:
+        dist.destroy_process_group()
+    return rec, fails
+
+
+def domains_phase(torch, fast_nms, knn2, features, cfg, det, desc, i1, i2,
+                  dev, seed, n_sm):
+    """Phase 12: K1 at t < 0 (``domain_k1``); K2a against the maps of
+    DOMAIN_MAPS (``domain_map``, ``domain_map_checks``: the scene's 2048
+    right-image ORB descriptors, or BRISK's at 16 words, against seeded
+    maps holding the left image's), at DOMAIN_WIDE_WORDS and on
+    unaligned views (``domain_wide``); K2b past D = 640 (``domain_l2``);
+    ``sharded_match`` in a world of one against the largest 8-word map and
+    a float map (``domain_sharded``). Returns (record, failures, wall
+    s)."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 126)
+    out, fails = {}, []
+    scene = (i1[None].contiguous(), torch.stack([i1, i2]).contiguous())
+    out["k1"], f = domain_k1(torch, fast_nms, scene, dev, seed, n_sm)
+    fails += f
+    bands = features.detector_bands(det)
+    kp1, kp2 = (features.detect_keypoints(i, det) for i in (i1, i2))
+    descs = {}
+    for kind in (desc, cfg.DescriptorConfig(kind="BRISK")):
+        d1, _ = features.compute_descriptors(i1, kp1, kind, bands)
+        d2, _ = features.compute_descriptors(i2, kp2, kind, bands)
+        descs[d1.shape[1]] = ((d2, kp2.xy), (d1, kp1.xy))
+    n_q = kp2.xy.shape[0]
+    pred = kp2.xy + torch.from_numpy(rng.normal(
+        scale=8.0, size=(n_q, 2)).astype(np.float32)).to(dev)
+    rad_q = torch.from_numpy(
+        (rng.uniform(20, 80, n_q) ** 2).astype(np.float32)).to(dev)
+    out["maps"] = {}
+    sharded_map = None
+    for i, (words, n_rows) in enumerate(DOMAIN_MAPS):
+        queries, plants = descs[words]
+        m = domain_map(torch, knn2, n_rows, queries, plants, pred,
+                       seed + 127 + i, dev)
+        rec, f = domain_map_checks(torch, knn2, m, queries, plants, pred,
+                                   rad_q, n_sm)
+        out["maps"][f"{n_rows}x{words}w"] = rec
+        fails += f
+        if (words, n_rows) == DOMAIN_SHARDED_MAP:
+            sharded_map = m
+        del m
+        torch.cuda.empty_cache()
+    out["wide"] = domain_wide(torch, knn2, dev, seed, n_sm)
+    out["l2"], out["l2_max_abs_err"] = domain_l2(torch, knn2, dev, seed,
+                                                 n_sm)
+    out["sharded"], f = domain_sharded(torch, knn2, sharded_map, *descs[8],
+                                       dev, seed)
+    fails += f
+    return out, fails, time.perf_counter() - t_phase
+
+
 def _bound(bytes_moved, time_ops):
     """(bound ms, what bounds it): the larger of the bytes over the HBM
     rate and the operation time."""
@@ -4169,15 +4780,20 @@ def main(argv=None) -> int:
     (k1_err, k1_ties), (k1_pad_err, k1_pad_ties) = check_fast_nms_padded(
         torch, fast_nms, np.random.default_rng(args.seed + 3), (one, two),
         thr, dev)
-    for bad in (dict(radius=fast_nms.MAX_RADIUS + 1),
-                dict(threshold=-thr)):
-        kw = dict(threshold=thr, radius=det.nms_radius) | bad
-        try:
-            fast_nms.fast_nms_score(one, **kw)
-        except ValueError:
-            pass
-        else:
-            raise AssertionError(f"fast_nms: {bad} on the card did not raise")
+    try:
+        fast_nms.fast_nms_score(one, thr, fast_nms.MAX_RADIUS + 1)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("fast_nms: radius "
+                             f"{fast_nms.MAX_RADIUS + 1} on the card did not "
+                             "raise")
+    # a negative threshold takes its own instantiation: bit-exact
+    neg_err, neg_ties = check_fast_nms(torch, fast_nms, one, -thr,
+                                       det.nms_radius)
+    if neg_err or neg_ties:
+        raise AssertionError(f"fast_nms t={-thr}: max abs err {neg_err}, "
+                             f"{neg_ties} tie mismatches")
     k1 = functools.partial(fast_nms.fast_nms_score, one, thr, det.nms_radius)
     k1_plain = functools.partial(fast_nms.fast_nms_score_plain, one, thr,
                                  det.nms_radius)
@@ -4418,6 +5034,16 @@ def main(argv=None) -> int:
     for line in dist_out:
         print(json.dumps(line))
     print(json.dumps({"phase_11_s": dist_s, "card": smi}))
+    # 12. the kernels over the JAX package's whole input domain: K1 at
+    # t < 0, K2a past one launch's columns and past 16 words, unaligned,
+    # K2b past D = 640, sharded_match against a 2^24-row map on one card
+    dom, fails, dom_s = domains_phase(torch, fast_nms, knn2, features, cfg,
+                                      det, desc, i1, i2, dev, args.seed,
+                                      n_sm)
+    failures.extend(f"domains: {f}" for f in fails)
+    for part in ("k1", "maps", "wide", "l2", "sharded"):
+        print(json.dumps({"domains": part, "card": smi, "record": dom[part]}))
+    print(json.dumps({"phase_12_s": dom_s, "card": smi}))
 
     def launches_distribution(name):
         return {w: {fn: v[name] for fn, v in fns.items()}
@@ -4510,7 +5136,12 @@ def main(argv=None) -> int:
          "pyramid_levels_checked": k2a16["k1_levels"],
          "all_cases_tie_mismatches": k1_pad_ties,
          "kernels_per_call": k1_per_call,
-         "device_ms": k1_dev_ms, "plain_device_ms": k1_plain_dev_ms},
+         "device_ms": k1_dev_ms, "plain_device_ms": k1_plain_dev_ms,
+         "domains": {"threshold_below_0": {
+             k: dom["k1"][k] for k in (
+                 "shape", "threshold", "radius", "launches_per_call",
+                 "kernels_per_call", "device_ms", "ms", "plain_ms",
+                 "bound_ms", "bound_by", "bound_pipe")}}},
         {"name": "knn2", "route": "cuda",
          "source": "matchinglib_poselib_torch/csrc/knn2.cu",
          "replaces": "matchinglib_poselib_tpu/ops/pallas/knn.py:131",
@@ -4549,7 +5180,13 @@ def main(argv=None) -> int:
          "device_ms": k2_dev_ms[0], "plain_device_ms": k2_plain_dev_ms[0],
          "ms_guided": k2_ms[1], "plain_ms_guided": k2_plain_ms[1],
          "device_ms_guided": k2_dev_ms[1],
-         "plain_device_ms_guided": k2_plain_dev_ms[1]},
+         "plain_device_ms_guided": k2_plain_dev_ms[1],
+         "domains": {
+             "maps": {k: {"shape": v["shape"], **{
+                 f"xy_mode_{m}": v[m] for m in (0, 1, 2)}}
+                 for k, v in dom["maps"].items()},
+             "wide": {str(k): v for k, v in dom["wide"].items()},
+             "sharded_match_binary": dom["sharded"]["binary"]}},
         {"name": "knn2_l2", "route": "cuda",
          "source": "matchinglib_poselib_torch/csrc/knn2_l2.cu",
          "replaces": "matchinglib_poselib_tpu/ops/pallas/knn.py:51",
@@ -4579,7 +5216,17 @@ def main(argv=None) -> int:
          "device_ms_guided": k2b["sift"][1]["device_ms"],
          "plain_device_ms_guided": k2b["sift"][1]["plain_device_ms"],
          "bound_ms_guided": k2b["sift"]["bound_ms_guided"],
-         "by_shape": k2b},
+         "by_shape": k2b,
+         "domains": {
+             "depths": {str(d): {"shape": v["shape"], "unguided": v[0],
+                                 "guided": v[1], **({
+                                     "chunked_launches_per_call":
+                                     v["chunked_launches_per_call"]}
+                                     if "chunked_launches_per_call" in v
+                                     else {})}
+                        for d, v in dom["l2"].items()},
+             "max_abs_err": dom["l2_max_abs_err"],
+             "sharded_match_float": dom["sharded"]["float"]}},
     ]}
     print(json.dumps(kernels_line))
     for c_name, rec in steps:

@@ -80,10 +80,7 @@ _PARAM_SCHEMA = {
 
 def params_to_configs(params: dict) -> dict:
     """Flat launch / dynamic-reconfigure params -> {"det", "desc",
-    "match", "pose", "node"}. An unknown name raises ``KeyError``; a
-    negative ``f_detect_th`` raises ``ValueError``: the FAST kernel
-    (``kernels.fast_nms``) shares one |d| - t between the bright and the
-    dark arc and takes thresholds >= 0 only."""
+    "match", "pose", "node"}. An unknown name raises ``KeyError``."""
     groups = {g: {} for g in ("det", "desc", "match", "robust", "refine",
                               "ba", "node")}
     for name, value in params.items():
@@ -92,10 +89,6 @@ def params_to_configs(params: dict) -> dict:
         group, field, cast = _PARAM_SCHEMA[name]
         if group is not None:
             groups[group][field] = cast(value)
-    if groups["det"].get("fast_threshold", 0.0) < 0:
-        raise ValueError(
-            f"f_detect_th {groups['det']['fast_threshold']}: the FAST "
-            "kernel takes thresholds >= 0 only")
 
     rb = groups["robust"]
     if "estimator_name" in rb:

@@ -31,10 +31,15 @@
 //   the 2r halo columns are spread over all threads in one extra trip;
 // - one FSETP per side serves the relu and the mask bit: for finite
 //   floats d > t exactly when d - t > 0, so `if (d > t) sb += d - t` is a
-//   predicated FADD whose sums are bit-identical to adding max(d - t, 0)
-//   (the wrapper holds t >= 0, which the shared |d| - t below needs);
+//   predicated FADD whose sums are bit-identical to adding max(d - t, 0);
 //   the mask bit is a predicated FADD of 2^s under the same predicate,
 //   and the arc test takes 4 shift rounds instead of 8 (same bits);
+// - the threshold's sign picks one of two instantiations: at t >= 0 one
+//   |d| - t serves both sides (a sample passes at most one test); at
+//   t < 0 a sample with |d| < -t passes both, so each side keeps its own
+//   argument, d - t and -d - t, as the Pallas body's two relu sums do (16
+//   more FADD per pixel). A flat region then scores 16 |t| everywhere and
+//   the NMS keeps every tie, as the plain version does;
 // - phase B: each thread owns a strip of P = 4 output rows of one column;
 //   it takes the row max (2r + 1 shared reads) of the P + 2r score rows
 //   the strip needs, slides the vertical window max over them in
@@ -56,7 +61,7 @@ constexpr int kThreads = kTileW * kThreadsY;
 // I(p - o): the kernel reads the same pixel in the same order, so the relu
 // sums accumulate identically (the Pallas kernel reads I(p + o), which
 // differs from its XLA reference in the last ulp).
-template <int IW>
+template <int IW, bool kNeg>
 __device__ __forceinline__ float fast_score(const float* c, float t) {
   const int ring_dy[16] = {-3, -3, -2, -1, 0, 1, 2, 3,
                            3, 3, 2, 1, 0, -1, -2, -3};
@@ -72,18 +77,29 @@ __device__ __forceinline__ float fast_score(const float* c, float t) {
 #pragma unroll
   for (int s = 0; s < 16; ++s) {
     const float d = c[-ring_dy[s] * IW - ring_dx[s]] - v;
-    // |d| - t is d - t where d > t and -d - t where d < -t: the same
-    // operation on the same operands, so one FADD serves both sides. This
-    // needs t >= 0 (with t < 0 both sides hold for |d| < -t, and the
-    // bright sum would get -d - t); the wrapper refuses a negative t
-    const float e = fabsf(d) - t;
-    if (d > t) {
-      sb = sb + e;
-      wb = wb + (float)(1u << s);
-    }
-    if (d < -t) {
-      sd = sd + e;
-      wd = wd + (float)(1u << s);
+    if constexpr (kNeg) {
+      // t < 0: both tests can hold, each side adds its own argument
+      if (d > t) {
+        sb = sb + (d - t);
+        wb = wb + (float)(1u << s);
+      }
+      if (d < -t) {
+        sd = sd + (-d - t);
+        wd = wd + (float)(1u << s);
+      }
+    } else {
+      // |d| - t is d - t where d > t and -d - t where d < -t: the same
+      // operation on the same operands, so one FADD serves both sides
+      // (at t >= 0 at most one side holds)
+      const float e = fabsf(d) - t;
+      if (d > t) {
+        sb = sb + e;
+        wb = wb + (float)(1u << s);
+      }
+      if (d < -t) {
+        sd = sd + e;
+        wd = wd + (float)(1u << s);
+      }
     }
   }
   // The masks are integers < 2^16, exact in f32: adding 2^23 puts them in
@@ -104,7 +120,7 @@ __device__ __forceinline__ float fast_score(const float* c, float t) {
   return corner ? fmaxf(sb, sd) : 0.0f;
 }
 
-template <int R>
+template <int R, bool kNeg>
 __global__ void __launch_bounds__(kThreads)
 fast_nms_kernel(const float* __restrict__ img, float* __restrict__ out,
                 int H, int W, float t) {
@@ -165,7 +181,7 @@ fast_nms_kernel(const float* __restrict__ img, float* __restrict__ out,
 #pragma unroll
     for (int i = 0; i < SA; ++i) {
       if (sr0 + i < SH) {
-        score[(sr0 + i) * SW + tx] = fast_score<IW>(c + i * IW, t);
+        score[(sr0 + i) * SW + tx] = fast_score<IW, kNeg>(c + i * IW, t);
       }
     }
   }
@@ -180,7 +196,7 @@ fast_nms_kernel(const float* __restrict__ img, float* __restrict__ out,
         const int sr = j / (2 * R);  // compile-time divisor
         const int sx = kTileW + (j - sr * 2 * R);
         score[sr * SW + sx] =
-            fast_score<IW>(tile + (sr + 3) * IW + sx + 3, t);
+            fast_score<IW, kNeg>(tile + (sr + 3) * IW + sx + 3, t);
       }
     }
   }
@@ -219,8 +235,13 @@ template <int R>
 int launch(const void* imgs, void* out, int B, int H, int W, float t,
            cudaStream_t stream) {
   dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
-  fast_nms_kernel<R><<<grid, dim3(kTileW, kThreadsY), 0, stream>>>(
-      static_cast<const float*>(imgs), static_cast<float*>(out), H, W, t);
+  const dim3 block(kTileW, kThreadsY);
+  const auto* in = static_cast<const float*>(imgs);
+  auto* o = static_cast<float*>(out);
+  if (t < 0.0f)
+    fast_nms_kernel<R, true><<<grid, block, 0, stream>>>(in, o, H, W, t);
+  else
+    fast_nms_kernel<R, false><<<grid, block, 0, stream>>>(in, o, H, W, t);
   return (int)cudaGetLastError();
 }
 
@@ -228,8 +249,9 @@ int launch(const void* imgs, void* out, int B, int H, int W, float t,
 
 extern "C" {
 
-// imgs, out: (B, H, W) contiguous float32 on the device; radius 0..5.
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// imgs, out: (B, H, W) contiguous float32 on the device; radius 0..5;
+// any finite threshold (its sign picks the instantiation). Launches on
+// `stream` and returns cudaGetLastError() (0 on success).
 int fast_nms_launch(const void* imgs, void* out, int B, int H, int W,
                     float threshold, int radius, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;

@@ -1,5 +1,5 @@
 // Fused binary 2-NN search with an optional radius gate, on the tensor
-// cores, for 256- and 512-bit descriptors.
+// cores, for descriptors of any width.
 //
 // Replaces the packed binary body of the Pallas TPU kernel
 // matchinglib_poselib_tpu/ops/pallas/knn.py (knn2, kernel body
@@ -10,62 +10,78 @@
 // r^2; then the best distance, its column (lowest column on ties) and the
 // second-best distance. Output: d_best, d_second as float (1e9 when no
 // candidate is valid and inside the gate) and idx (-1 then),
-// bit-identical to the plain version in ops/kernels/knn2.py. The kernel
-// is built for kWords = 8 (256 bits) and 16 (512 bits) 32-bit words per
-// descriptor; the wrapper pads narrower descriptors with zero words,
-// which add nothing to a popcount.
+// bit-identical to the plain version in ops/kernels/knn2.py. Three
+// instantiations: kWords = 8 (256 bits) and 16 (512 bits) 32-bit words
+// per descriptor, with the query rows' fragments in registers, and a
+// runtime width for wider descriptors (a multiple of 8 words), with the
+// fragments staged in shared memory; the wrapper pads narrower
+// descriptors with zero words, which add nothing to a popcount.
 //
 // The product. The TPU body multiplies +-1 signs on the MXU. Here each
 // 16 x 8 tile of pairs is one mma.sync.m16n8k256 .b1 .and.popc per 256
 // bits on the packed words as they are (two, accumulating into the same
-// registers, at 512 bits): c = popc(a & b) exactly, in s32, and ham = pa
-// + pb - 2 c with pa, pb the row and column popcounts. On sm_90a this is
-// one BMMA instruction (a hardware tensor-core op, not an emulation;
-// chip_probes/mma_probe.py shows it in the SASS and checks it exact). At
-// 2048 x 2048 x 256 bits the whole product is 32 K such instructions,
-// well under a microsecond on 132 SMs, so neither wgmma nor TMA would buy
-// anything here: wgmma has no .b1 form, and the inputs (2 x 64 KB, or 2 x
-// 128 KB at 512 bits) live in L2.
+// registers, at 512 bits; one per 256-bit chunk at a runtime width): c =
+// popc(a & b) exactly, in s32, and ham = pa + pb - 2 c with pa, pb the
+// row and column popcounts. On sm_90a this is one BMMA instruction (a
+// hardware tensor-core op, not an emulation; chip_probes/mma_probe.py
+// shows it in the SASS and checks it exact). At 2048 x 2048 x 256 bits
+// the whole product is 32 K such instructions, well under a microsecond
+// on 132 SMs, so neither wgmma nor TMA would buy anything here: wgmma has
+// no .b1 form, and the inputs (2 x 64 KB, or 2 x 128 KB at 512 bits)
+// live in L2.
 //
 // What bounds it, then: the epilogue, one key per pair in 32-bit integer
 // ops (64 per clock per SM), and at the main path's size the fixed
 // latency of one short launch (the first loads, the cluster's barrier and
 // merge; PERF.md has the measured split). Design:
-// - Keys. key = (field << kColBits) | column with field = pb - 2 c +
-//   kBits, the Hamming distance less the row's constant pa - kBits (a
+// - Keys. key = (field << col_bits) | column with field = pb - 2 c +
+//   bits, the Hamming distance less the row's constant pa - bits (a
 //   constant per row moves no min), so one IMAD per pair builds the key
-//   from a per-column constant ((pb + kBits) << kColBits | column). Since
-//   c <= min(pa, pb), the field lies in 0..2 kBits: 0..512 at 256 bits,
-//   10 bits with 21 column bits; 0..1024 at 512 bits (1024 for an
-//   all-zero row against an all-ones column), 11 bits with 20 column
-//   bits. A fault (invalid column or outside the gate)
+//   from a per-column constant ((pb + bits) << col_bits | column). Since
+//   c <= min(pa, pb), the field lies in 0..2 bits: bit_length(2 bits)
+//   bits (10 at 256 bits, 11 at 512, 12 at 1024), and the column field is
+//   what remains of 31 bits (21, 20, 19). The column is relative to the
+//   block's column slice. A fault (invalid column or outside the gate)
 //   sets bit 31, above every valid key, so a faulted key sorts after
 //   every valid one and a second fault changes nothing. Lowest-column
 //   ties fall out of the native 32-bit min; the top-2 update is m2 =
 //   min(m2, max(m1, k)); m1 = min(m1, k). Columns past the end stage as
-//   zero words with the key 0xffffffff (n2 <= 2^kColBits, checked by the
-//   wrapper).
-// - Filling the card. A block owns 64 query rows (4 warps x 16, the A
-//   fragments in registers for the whole sweep) and one of 8 slices of
-//   the columns; the 8 slices of one row block form a thread-block
-//   cluster (8 is the portable cluster size; 32 x 8 = 256 blocks at the
-//   main path's 2048 rows), and after the sweep the cluster merges its
-//   slices' top-2 pairs through distributed shared memory. One launch
-//   per call, no scratch in device memory. Each lane keeps four
+//   zero words with the key 0xffffffff.
+// - Filling the card. A block owns 64 query rows (4 warps x 16) and one
+//   of 8 slices of the columns; the 8 slices of one row block form a
+//   thread-block cluster (8 is the portable cluster size; 32 x 8 = 256
+//   blocks at the main path's 2048 rows), and after the sweep the cluster
+//   merges its slices' top-2 pairs through distributed shared memory,
+//   each key widened to 64 bits as (fault and field, slice start +
+//   column), so the lowest column still wins a tie across slices. A
+//   slice holds at most 2^col_bits columns, so one launch takes 8 x
+//   2^col_bits (2^24 at 8 words, 2^23 at 16); the wrapper launches once
+//   per such chunk of a longer candidate set and merges the chunks. One
+//   launch per chunk, no scratch in device memory. Each lane keeps four
 //   independent (min, second min) chains, one per row and column parity
 //   of its accumulator fragment.
-// - Overlapping loads. Candidates are staged kTile columns at a time (256
-//   at 256 bits, 128 at 512 bits, so the static shared memory stays
-//   under 48 KB) by cp.async into a 2-stage ring; the next tile's copies
-//   and the loads of its per-column constants (validity, x, y, r^2) are
-//   in flight while the current tile is multiplied, and the thread that
-//   copied a column computes its popcount and key constant once per
-//   block. One barrier per tile. Staged columns are padded to kStride
-//   words (12 for 8, 20 for 16: 16-byte multiples whose g * kStride mod
-//   32 for the 8 fragment columns g are 8 distinct multiples of 4), so
-//   the fragment loads of a warp (word t of column g, 0 <= t < 4) hit 32
-//   distinct banks, for either 256-bit half. Each warp issues 8 products
-//   before their epilogues, so the tensor-core latency overlaps.
+// - Overlapping loads, kWords 8 and 16. Candidates are staged kTile
+//   columns at a time (256 at 256 bits, 128 at 512 bits, so the static
+//   shared memory stays under 48 KB) by cp.async into a 2-stage ring; the
+//   next tile's copies and the loads of its per-column constants
+//   (validity, x, y, r^2) are in flight while the current tile is
+//   multiplied, and the thread that copied a column computes its popcount
+//   and key constant once per block. One barrier per tile. Staged columns
+//   are padded to kStride words (12 for 8, 20 for 16: 16-byte multiples
+//   whose g * kStride mod 32 for the 8 fragment columns g are 8 distinct
+//   multiples of 4), so the fragment loads of a warp (word t of column g,
+//   0 <= t < 4) hit 32 distinct banks, for either 256-bit half. Each warp
+//   issues 8 products before their epilogues, so the tensor-core latency
+//   overlaps.
+// - A runtime width (knn2_wide_kernel). The 64 query rows and 128
+//   candidate columns stream through a 2-stage cp.async ring in depth
+//   chunks of 16 words (two 256-bit products), rows and columns at a
+//   20-word stride (the same conflict-free fragment loads); each warp's
+//   16 x 128 accumulators stay in registers across the depth chunks, the
+//   column popcounts accumulate from the staged chunks, the row popcounts
+//   come from a pre-pass. One barrier per chunk; the epilogue runs once
+//   per tile on the summed products, with the tile's keys double-buffered
+//   so the next tile's keys never overwrite ones still read.
 // - The gate uses round-to-nearest multiplies and adds with no FMA
 //   contraction, so it decides exactly as the plain version's separate
 //   ops do.
@@ -85,6 +101,22 @@ constexpr int kGroup = 8;       // 16 x 8 products in flight per warp
 constexpr unsigned kFault = 1u << 31;
 constexpr unsigned kNone = ~0u;
 constexpr int kSplits = 8;      // column slices = blocks per cluster (portable)
+// runtime width: candidate columns per tile, words per depth chunk and
+// per staged row or column (padding included)
+constexpr int kWideTile = 128;
+constexpr int kWideDepth = 16;
+constexpr int kWideStride = 20;
+constexpr int kWideNb = kWideTile / 8;  // 8-column n-blocks per tile
+// widest descriptor: the distance field 0..64 words must fit 31 bits
+constexpr int kMaxWords = (1 << 25) - 8;
+
+// bits of the key's column field at `words` words: what 31 bits leave
+// beside the distance field, bit_length(2 * 32 * words)
+__host__ __device__ constexpr int col_bits_for(int words) {
+  int field = 0;
+  for (unsigned v = 64u * (unsigned)words; v != 0u; v >>= 1) ++field;
+  return 31 - field;
+}
 
 // per descriptor width: candidate columns per stage, words per staged
 // column (padding included), bits of the key's column field
@@ -92,12 +124,16 @@ template <int kWords>
 struct Width;
 template <>
 struct Width<8> {
-  static constexpr int kTile = 256, kStride = 12, kColBits = 21;
+  static constexpr int kTile = 256, kStride = 12,
+                       kColBits = col_bits_for(8);
 };
 template <>
 struct Width<16> {
-  static constexpr int kTile = 128, kStride = 20, kColBits = 20;
+  static constexpr int kTile = 128, kStride = 20,
+                       kColBits = col_bits_for(16);
 };
+static_assert(Width<8>::kColBits == 21 && Width<16>::kColBits == 20,
+              "the 8- and 16-word keys' column fields");
 
 // d += popc(A & B) for one 16 x 8 tile: A (16 x 256 bits, row) in a[4],
 // B (256 bits x 8, col) in b0, b1
@@ -124,10 +160,58 @@ __device__ __forceinline__ void push(unsigned k, unsigned& m1, unsigned& m2) {
 }
 
 // merge the sorted pair (o1, o2) into the sorted pair (m1, m2)
-__device__ __forceinline__ void merge(unsigned o1, unsigned o2, unsigned& m1,
-                                      unsigned& m2) {
+template <typename T>
+__device__ __forceinline__ void merge(T o1, T o2, T& m1, T& m2) {
   m2 = min(max(m1, o1), min(m2, o2));
   m1 = min(m1, o1);
+}
+
+// a slice's key as (fault and field, column of the launch) in 64 bits:
+// ordered as (field, slice, column in the slice)
+__device__ __forceinline__ unsigned long long widen(unsigned key, int slice,
+                                                    int cols_per_split,
+                                                    int col_bits) {
+  const unsigned col = key & ((1u << col_bits) - 1u);
+  return ((unsigned long long)(key >> col_bits) << 32) |
+         (unsigned)(slice * cols_per_split + (int)col);
+}
+
+// After the sweep: every block's top-2 keys of its 64 rows (relative to
+// its slice) in s_m1 / s_m2, the rows' popcounts in s_pa. The cluster's
+// blocks merge the 8 slices through distributed shared memory in slice
+// order; block r finishes rows r, r + 8, ... of the 64.
+__device__ __forceinline__ void finish_rows(
+    const unsigned* s_m1, const unsigned* s_m2, const int* s_pa, int bits,
+    int col_bits, int cols_per_split, int row0, int n1, int tid,
+    float* __restrict__ d_best, float* __restrict__ d_second,
+    int* __restrict__ idx) {
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int lr = (int)cluster.block_rank() + kSplits * tid;
+  if (lr < kRows) {
+    unsigned o1[kSplits], o2[kSplits];
+#pragma unroll
+    for (int q = 0; q < kSplits; ++q) {
+      o1[q] = cluster.map_shared_rank(s_m1, q)[lr];
+      o2[q] = cluster.map_shared_rank(s_m2, q)[lr];
+    }
+    unsigned long long b1 = ~0ull, b2 = ~0ull;
+#pragma unroll
+    for (int q = 0; q < kSplits; ++q)
+      merge(widen(o1[q], q, cols_per_split, col_bits),
+            widen(o2[q], q, cols_per_split, col_bits), b1, b2);
+    const int row = row0 + lr;
+    if (row < n1) {
+      const int pa = s_pa[lr] - bits;  // the same rows in every block
+      const unsigned fault = kFault >> col_bits;
+      const unsigned h1 = (unsigned)(b1 >> 32), h2 = (unsigned)(b2 >> 32);
+      const bool ok1 = !(h1 & fault);
+      d_best[row] = ok1 ? (float)((int)h1 + pa) : 1e9f;
+      idx[row] = ok1 ? (int)(unsigned)b1 : -1;
+      d_second[row] = (h2 & fault) ? 1e9f : (float)((int)h2 + pa);
+    }
+  }
+  cluster.sync();  // keep every block's s_m1 / s_m2 alive until read
 }
 
 template <int kWords, int kMode>
@@ -142,7 +226,6 @@ knn2_kernel(const unsigned* __restrict__ desc1,
   constexpr int kTile = Width<kWords>::kTile;
   constexpr int kStride = Width<kWords>::kStride;
   constexpr int kColBits = Width<kWords>::kColBits;
-  constexpr unsigned kColMask = (1u << kColBits) - 1u;
   constexpr int kBits = 32 * kWords;
   constexpr int kChunks = kWords / 8;  // 256-bit products per tile
   constexpr int kColsPerThread = kTile / kThreads;  // columns staged each
@@ -227,7 +310,7 @@ knn2_kernel(const unsigned* __restrict__ desc1,
           pb += __popc(w.x) + __popc(w.y) + __popc(w.z) + __popc(w.w);
         }
         key = (c_valid[u] ? 0u : kFault) | ((pb + kBits) << kColBits) |
-              (unsigned)col;
+              (unsigned)(col - cbeg);
       }
       s_key[s][c] = key;
       if constexpr (kMode != 0) {
@@ -318,40 +401,220 @@ knn2_kernel(const unsigned* __restrict__ desc1,
       s_pa[warp * 16 + g + 8 * h] = pa;
     }
   }
-
-  // merge the cluster's column slices through distributed shared memory:
-  // block r of the cluster finishes rows r, r + 8, ... of the 64
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  const int lr = (int)cluster.block_rank() + kSplits * tid;
-  if (lr < kRows) {
-    unsigned o1[kSplits], o2[kSplits];
-#pragma unroll
-    for (int q = 0; q < kSplits; ++q) {
-      o1[q] = cluster.map_shared_rank(s_m1, q)[lr];
-      o2[q] = cluster.map_shared_rank(s_m2, q)[lr];
-    }
-    unsigned b1 = kNone, b2 = kNone;
-#pragma unroll
-    for (int q = 0; q < kSplits; ++q) merge(o1[q], o2[q], b1, b2);
-    const int row = row0 + lr;
-    if (row < n1) {
-      const int pa = s_pa[lr] - kBits;  // the same rows in every block
-      const bool ok1 = !(b1 & kFault);
-      d_best[row] = ok1 ? (float)((int)(b1 >> kColBits) + pa) : 1e9f;
-      idx[row] = ok1 ? (int)(b1 & kColMask) : -1;
-      d_second[row] =
-          (b2 & kFault) ? 1e9f : (float)((int)(b2 >> kColBits) + pa);
-    }
-  }
-  cluster.sync();  // keep every block's s_m1 / s_m2 alive until read
+  finish_rows(s_m1, s_m2, s_pa, kBits, kColBits, cols_per_split, row0, n1,
+              tid, d_best, d_second, idx);
 }
 
-template <int kWords, int kMode>
-cudaError_t launch(const void* desc1, const void* desc2, const void* valid2,
-                   const void* pred, const void* rad2, const void* pts2,
-                   int n1, int n2, float* d_best, float* d_second,
-                   int* idx, cudaStream_t stream) {
+// The runtime width: words > 16, a multiple of 8. Step s of the sweep is
+// (tile s / n_kc, depth chunk s % n_kc); its 64 query rows and kWideTile
+// columns of kWideDepth words land in ring slot s & 1.
+template <int kMode>
+__global__ void __launch_bounds__(kThreads)
+knn2_wide_kernel(const unsigned* __restrict__ desc1,
+                 const unsigned* __restrict__ desc2,
+                 const unsigned char* __restrict__ valid2,
+                 const float* __restrict__ pred,
+                 const float* __restrict__ rad2,
+                 const float* __restrict__ pts2, int n1, int n2, int words,
+                 int col_bits, int cols_per_split, float* __restrict__ d_best,
+                 float* __restrict__ d_second, int* __restrict__ idx) {
+  __shared__ __align__(16) unsigned s_a[2][kRows][kWideStride];
+  __shared__ __align__(16) unsigned s_b[2][kWideTile][kWideStride];
+  // keys and gate values of the tile, by tile parity
+  __shared__ __align__(8) unsigned s_key[2][kWideTile];
+  __shared__ __align__(8) float s_x[2][kMode ? kWideTile : 2];
+  __shared__ __align__(8) float s_y[2][kMode ? kWideTile : 2];
+  __shared__ __align__(8) float s_r2[2][kMode == 2 ? kWideTile : 2];
+  __shared__ unsigned s_m1[kRows], s_m2[kRows];
+  __shared__ int s_pa[kRows];
+  static_assert(kWideTile == kThreads, "one staged column per thread");
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;  // fragment row group, k group
+  const int row0 = blockIdx.x * kRows;
+  const int cbeg = blockIdx.y * cols_per_split;
+  const int cend = min(n2, cbeg + cols_per_split);
+  const int n_tiles =
+      cend > cbeg ? (cend - cbeg + kWideTile - 1) / kWideTile : 0;
+  const int n_kc = (words + kWideDepth - 1) / kWideDepth;
+  const int n_steps = n_tiles * n_kc;
+  const int bits = 32 * words;
+
+  // row popcounts: two threads per row, each over every other word
+  {
+    const int r = tid >> 1;
+    const unsigned* src = desc1 + (size_t)min(row0 + r, n1 - 1) * words;
+    int p = 0;
+    for (int w = tid & 1; w < words; w += 2) p += __popc(src[w]);
+    p += __shfl_xor_sync(0xffffffffu, p, 1);
+    if ((tid & 1) == 0) s_pa[r] = p;
+  }
+
+  // stage step s: 16-byte copies, words past `words` and columns past
+  // the slice zero-filled; query rows past n1 repeat the last row
+  auto fetch = [&](int s) {
+    const int tile = s / n_kc, kc = s - tile * n_kc, b = s & 1;
+    const int k0 = kc * kWideDepth;
+#pragma unroll
+    for (int u = 0; u < kRows * kWideDepth / 4 / kThreads; ++u) {
+      const int e = tid + u * kThreads;
+      const int r = e >> 2, k = k0 + 4 * (e & 3);
+      const unsigned* src =
+          desc1 + (size_t)min(row0 + r, n1 - 1) * words + k;
+      cp_async16(&s_a[b][r][4 * (e & 3)], k < words ? src : desc1,
+                 k < words ? 16 : 0);
+    }
+#pragma unroll
+    for (int u = 0; u < kWideTile * kWideDepth / 4 / kThreads; ++u) {
+      const int e = tid + u * kThreads;
+      const int c = e >> 2, k = k0 + 4 * (e & 3);
+      const int col = cbeg + tile * kWideTile + c;
+      const bool in = col < cend && k < words;
+      cp_async16(&s_b[b][c][4 * (e & 3)],
+                 in ? desc2 + (size_t)col * words + k : desc2, in ? 16 : 0);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  unsigned m1[4] = {kNone, kNone, kNone, kNone};
+  unsigned m2[4] = {kNone, kNone, kNone, kNone};
+  unsigned d[kWideNb][4];
+  float qx[2] = {0.0f, 0.0f}, qy[2] = {0.0f, 0.0f}, qr2[2] = {0.0f, 0.0f};
+  if constexpr (kMode != 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = min(row0 + warp * 16 + g + 8 * h, n1 - 1);
+      qx[h] = pred[2 * row];
+      qy[h] = pred[2 * row + 1];
+      if (kMode == 1) qr2[h] = rad2[row];
+    }
+  }
+  // column tid of the current tile: validity, gate values, popcount
+  bool c_valid = false;
+  float c_x = 0.0f, c_y = 0.0f, c_r2 = 0.0f;
+  unsigned pb = 0u;
+
+  if (n_steps > 0) fetch(0);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  for (int s = 0; s < n_steps; ++s) {
+    const int tile = s / n_kc, kc = s - tile * n_kc, b = s & 1;
+    const int c0 = cbeg + tile * kWideTile;
+    if (s + 1 < n_steps) fetch(s + 1);
+    if (kc == 0) {
+      const int col = c0 + tid;
+      const bool in = col < cend;
+      c_valid = in && valid2[col];
+      if constexpr (kMode != 0) {
+        c_x = in ? pts2[2 * col] : 0.0f;
+        c_y = in ? pts2[2 * col + 1] : 0.0f;
+        if constexpr (kMode == 2) c_r2 = in ? rad2[col] : 0.0f;
+      }
+      pb = 0u;
+#pragma unroll
+      for (int e = 0; e < kWideNb; ++e) d[e][0] = d[e][1] = d[e][2] =
+          d[e][3] = 0u;
+    }
+#pragma unroll
+    for (int v = 0; v < kWideDepth / 4; ++v) {
+      const uint4 w = *reinterpret_cast<const uint4*>(&s_b[b][tid][4 * v]);
+      pb += __popc(w.x) + __popc(w.y) + __popc(w.z) + __popc(w.w);
+    }
+    // n-blocks of 8 columns that hold a column of this slice
+    const int n_nb = (min(kWideTile, cend - c0) + 7) / 8;
+#pragma unroll
+    for (int q = 0; q < kWideDepth / 8; ++q) {
+      if (kc * kWideDepth + 8 * q < words) {  // else a zero-filled half
+        unsigned a[4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          a[h] = s_a[b][warp * 16 + g + 8 * h][8 * q + t];
+          a[2 + h] = s_a[b][warp * 16 + g + 8 * h][8 * q + 4 + t];
+        }
+#pragma unroll
+        for (int e = 0; e < kWideNb; ++e) {
+          if (e < n_nb) {
+            const unsigned* w = s_b[b][e * 8 + g];
+            mma_and_popc(d[e], a, w[8 * q + t], w[8 * q + 4 + t]);
+          }
+        }
+      }
+    }
+    const bool last = kc == n_kc - 1;
+    const int tb = tile & 1;
+    if (last) {
+      const int col = c0 + tid;
+      s_key[tb][tid] =
+          col < cend ? (c_valid ? 0u : kFault) |
+                           ((pb + (unsigned)bits) << col_bits) |
+                           (unsigned)(col - cbeg)
+                     : kNone;
+      if constexpr (kMode != 0) {
+        s_x[tb][tid] = c_x;
+        s_y[tb][tid] = c_y;
+        if constexpr (kMode == 2) s_r2[tb][tid] = c_r2;
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    if (!last) continue;
+    // epilogue of the tile: its summed products against its keys
+#pragma unroll
+    for (int e = 0; e < kWideNb; ++e) {
+      if (e >= n_nb) continue;
+      const int c = e * 8 + 2 * t;
+      const uint2 ck = *reinterpret_cast<const uint2*>(&s_key[tb][c]);
+      const unsigned step = 1u << (col_bits + 1);
+      unsigned k[4] = {ck.x - d[e][0] * step, ck.y - d[e][1] * step,
+                       ck.x - d[e][2] * step, ck.y - d[e][3] * step};
+      if constexpr (kMode != 0) {
+        const float2 cx = *reinterpret_cast<const float2*>(&s_x[tb][c]);
+        const float2 cy = *reinterpret_cast<const float2*>(&s_y[tb][c]);
+        float2 cr = make_float2(0.0f, 0.0f);
+        if constexpr (kMode == 2)
+          cr = *reinterpret_cast<const float2*>(&s_r2[tb][c]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const float dx = __fsub_rn(qx[h], j ? cx.y : cx.x);
+            const float dy = __fsub_rn(qy[h], j ? cy.y : cy.x);
+            const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+            const float r2 = kMode == 1 ? qr2[h] : (j ? cr.y : cr.x);
+            if (!(d2 <= r2)) k[2 * h + j] |= kFault;
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) push(k[q], m1[q], m2[q]);
+    }
+  }
+
+  // merge the column parities, then the four lanes of a row group
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    merge(m1[2 * h + 1], m2[2 * h + 1], m1[2 * h], m2[2 * h]);
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      const unsigned o1 = __shfl_xor_sync(0xffffffffu, m1[2 * h], off);
+      const unsigned o2 = __shfl_xor_sync(0xffffffffu, m2[2 * h], off);
+      merge(o1, o2, m1[2 * h], m2[2 * h]);
+    }
+    if (t == 0) {
+      s_m1[warp * 16 + g + 8 * h] = m1[2 * h];
+      s_m2[warp * 16 + g + 8 * h] = m2[2 * h];
+    }
+  }
+  finish_rows(s_m1, s_m2, s_pa, bits, col_bits, cols_per_split, row0, n1,
+              tid, d_best, d_second, idx);
+}
+
+// one launch of `kernel` over n2 <= kSplits << col_bits columns: a
+// cluster of kSplits blocks per 64 query rows, one column slice each
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, int n1, cudaStream_t stream,
+                   Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((n1 + kRows - 1) / kRows, kSplits);
   cfg.blockDim = dim3(kThreads);
@@ -363,59 +626,88 @@ cudaError_t launch(const void* desc1, const void* desc2, const void* valid2,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+template <int kWords, int kMode>
+cudaError_t launch_width(const unsigned* desc1, const unsigned* desc2,
+                         const unsigned char* valid2, const float* pred,
+                         const float* rad2, const float* pts2, int n1, int n2,
+                         int words, float* d_best, float* d_second, int* idx,
+                         cudaStream_t stream) {
   const int cols_per_split = (n2 + kSplits - 1) / kSplits;
-  return cudaLaunchKernelEx(
-      &cfg, knn2_kernel<kWords, kMode>, static_cast<const unsigned*>(desc1),
-      static_cast<const unsigned*>(desc2),
-      static_cast<const unsigned char*>(valid2),
-      static_cast<const float*>(pred), static_cast<const float*>(rad2),
-      static_cast<const float*>(pts2), n1, n2, cols_per_split, d_best,
-      d_second, idx);
+  if constexpr (kWords == 0)
+    return launch(knn2_wide_kernel<kMode>, n1, stream, desc1, desc2,
+                  valid2, pred, rad2, pts2, n1, n2, words,
+                  col_bits_for(words), cols_per_split, d_best, d_second, idx);
+  else
+    return launch(knn2_kernel<kWords, kMode>, n1, stream, desc1, desc2,
+                  valid2, pred, rad2, pts2, n1, n2, cols_per_split, d_best,
+                  d_second, idx);
 }
 
 template <int kWords>
-cudaError_t dispatch(const void* desc1, const void* desc2, const void* valid2,
-                     const void* pred, const void* rad2, const void* pts2,
-                     int n1, int n2, int xy_mode, float* d_best,
+cudaError_t dispatch(int xy_mode, const unsigned* desc1,
+                     const unsigned* desc2, const unsigned char* valid2,
+                     const float* pred, const float* rad2, const float* pts2,
+                     int n1, int n2, int words, float* d_best,
                      float* d_second, int* idx, cudaStream_t stream) {
-  if (n2 > (1 << Width<kWords>::kColBits)) return cudaErrorInvalidValue;
   if (xy_mode == 0)
-    return launch<kWords, 0>(desc1, desc2, valid2, pred, rad2, pts2, n1, n2,
-                             d_best, d_second, idx, stream);
+    return launch_width<kWords, 0>(desc1, desc2, valid2, pred, rad2, pts2,
+                                   n1, n2, words, d_best, d_second, idx,
+                                   stream);
   if (xy_mode == 1)
-    return launch<kWords, 1>(desc1, desc2, valid2, pred, rad2, pts2, n1, n2,
-                             d_best, d_second, idx, stream);
-  return launch<kWords, 2>(desc1, desc2, valid2, pred, rad2, pts2, n1, n2,
-                           d_best, d_second, idx, stream);
+    return launch_width<kWords, 1>(desc1, desc2, valid2, pred, rad2, pts2,
+                                   n1, n2, words, d_best, d_second, idx,
+                                   stream);
+  return launch_width<kWords, 2>(desc1, desc2, valid2, pred, rad2, pts2, n1,
+                                 n2, words, d_best, d_second, idx, stream);
+}
+
+// Most candidate columns one launch takes at `words` words (8 column
+// slices of 2^col_bits), or 0 for a width the kernel does not take.
+int max_columns(int words) {
+  if (words != 8 && (words < 16 || words % 8 != 0 || words > kMaxWords))
+    return 0;
+  return kSplits << col_bits_for(words);
 }
 
 }  // namespace
 
 extern "C" {
 
-// desc1 (n1, words), desc2 (n2, words) int32 bit patterns, words 8 or 16,
-// 16-byte aligned; valid2 (n2,) bool; xy_mode 0: pred, rad2, pts2 unused
-// (may be null); 1: pred (n1, 2), rad2 (n1,), pts2 (n2, 2); 2: pred (n1,
-// 2), rad2 (n2,), pts2 (n2, 2). n1 >= 1, 0 <= n2 <= 2^21 at 8 words, 2^20
-// at 16. The column sweep is cut into 8 slices, one cluster of 8 blocks
-// per 64 query rows. Outputs (n1,) float32, float32, int32. One launch on
-// `stream`; returns its cudaError_t (0 on success).
+// desc1 (n1, words), desc2 (n2, words) int32 bit patterns, words 8, 16 or
+// a larger multiple of 8, 16-byte aligned; valid2 (n2,) bool; xy_mode 0:
+// pred, rad2, pts2 unused (may be null); 1: pred (n1, 2), rad2 (n1,), pts2
+// (n2, 2); 2: pred (n1, 2), rad2 (n2,), pts2 (n2, 2). n1 >= 1, 0 <= n2 <=
+// max_columns(words). The column sweep is cut into 8 slices, one
+// cluster of 8 blocks per 64 query rows. Outputs (n1,) float32, float32,
+// int32. One launch on `stream`; returns its cudaError_t (0 on success).
 int knn2_launch(const void* desc1, const void* desc2, const void* valid2,
                 const void* pred, const void* rad2, const void* pts2, int n1,
                 int n2, int words, int xy_mode, void* d_best, void* d_second,
                 void* idx, void* stream) {
   if (n1 < 1 || n2 < 0 || xy_mode < 0 || xy_mode > 2 ||
-      (words != 8 && words != 16))
+      n2 > max_columns(words))
     return (int)cudaErrorInvalidValue;
+  const auto* a = static_cast<const unsigned*>(desc1);
+  const auto* b = static_cast<const unsigned*>(desc2);
+  const auto* v = static_cast<const unsigned char*>(valid2);
+  const auto* p = static_cast<const float*>(pred);
+  const auto* r = static_cast<const float*>(rad2);
+  const auto* x = static_cast<const float*>(pts2);
   auto* db = static_cast<float*>(d_best);
   auto* ds = static_cast<float*>(d_second);
   auto* ix = static_cast<int*>(idx);
   auto s = (cudaStream_t)stream;
-  const cudaError_t err =
-      words == 8 ? dispatch<8>(desc1, desc2, valid2, pred, rad2, pts2, n1,
-                               n2, xy_mode, db, ds, ix, s)
-                 : dispatch<16>(desc1, desc2, valid2, pred, rad2, pts2, n1,
-                                n2, xy_mode, db, ds, ix, s);
+  cudaError_t err;
+  if (words == 8)
+    err = dispatch<8>(xy_mode, a, b, v, p, r, x, n1, n2, words, db, ds, ix, s);
+  else if (words == 16)
+    err = dispatch<16>(xy_mode, a, b, v, p, r, x, n1, n2, words, db, ds, ix,
+                       s);
+  else
+    err = dispatch<0>(xy_mode, a, b, v, p, r, x, n1, n2, words, db, ds, ix, s);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 

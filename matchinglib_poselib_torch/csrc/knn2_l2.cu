@@ -35,16 +35,23 @@
 //   64-column tiles (a block sweeps whole tiles). A fixed 8 would not fit
 //   2048 rows' 256 blocks in one wave: the clusters of 8 that fit hold
 //   fewer blocks than that.
-// - The query tile stays in shared memory. The block's 64 rows are staged
-//   once, at full depth, by cp.async, as [row][k + pad]; candidates stream
-//   through a 3-stage cp.async ring of 64 columns x 64 depths, so the next
-//   two chunks load while the current one is multiplied. One barrier per
-//   chunk. Shared memory: 64 (ceil64(D) + 4) + 3 x 64 x 68 + 768 floats,
-//   89,088 bytes at D = 128; at least 80 KB is asked for (D = 64 needs
-//   72,704), so that no third block shares an SM: with room for three,
-//   the cluster scheduler packs some SMs with three blocks and leaves
-//   others with one. At most 128 registers (launch bounds). ptxas figures
-//   are in PERF.md.
+// - The query tile stays in shared memory at D <= 640. The block's 64
+//   rows are staged once, at full depth, by cp.async, as [row][k + pad];
+//   candidates stream through a 3-stage cp.async ring of 64 columns x 64
+//   depths, so the next two chunks load while the current one is
+//   multiplied. One barrier per chunk. Shared memory: 64 (ceil64(D) + 4)
+//   + 3 x 64 x 68 + 768 floats, 89,088 bytes at D = 128; at least 80 KB
+//   is asked for (D = 64 needs 72,704), so that no third block shares an
+//   SM: with room for three, the cluster scheduler packs some SMs with
+//   three blocks and leaves others with one. At most 128 registers
+//   (launch bounds). ptxas figures are in PERF.md.
+// - Past D = 640 the full-depth query tile no longer fits, and a second
+//   instantiation (kStream) streams it: each step of the ring stages the
+//   64 query rows' chunk of 64 depths beside the candidates' chunk (3 x
+//   64 x 68 floats more, 107,520 bytes in all, so two blocks still share
+//   an SM), and the row norms come from a pre-pass over device memory in
+//   the columns' order. The accumulators of a 64-column tile stay in
+//   registers across the depth chunks, as at D <= 640.
 // - 256 threads (8 warps), each with a 4 x 4 register tile (rows ty + 16 i,
 //   columns tx + 16 j): per 4 depths, 4 float4 of A and 4 float4 of B
 //   feed 64 FFMA, each float read feeding 4, one depth at a time over the
@@ -68,7 +75,7 @@
 //   merges compare (dist, column).
 // - Any shape: ragged n1 and n2 zero-fill through cp.async's source size;
 //   D % 4 != 0 or unaligned rows take 4-byte copies instead of 16-byte
-//   ones. D is limited by shared memory to 640 (the wrapper checks it).
+//   ones; any D >= 1.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -94,6 +101,7 @@ constexpr int kSmall = 7 * kRows + 5 * kCols;  // small arrays, floats
 constexpr int kMaxSmem = 232448;  // opt-in shared memory per block
 // dynamic shared memory asked for at least: no third block fits on an SM
 constexpr int kMinSmem = 80 * 1024;
+constexpr int kMaxTileDepth = 640;  // deepest query tile kept whole
 constexpr float kBig = 1e9f;
 static_assert(kThreads >= 2 * kRows && kThreads >= 2 * kCols &&
                   2 * kRows % 32 == 0 && 2 * kCols % 32 == 0,
@@ -104,13 +112,22 @@ __host__ __device__ constexpr int a_stride(int d) {
   return (d + kDepth - 1) / kDepth * kDepth + 4;
 }
 
-__host__ __device__ constexpr int smem_floats(int d) {
-  return kRows * a_stride(d) + kStages * kCols * kChunkStride + kSmall;
+// the query rows' shared memory: the whole tile, or a ring of chunks
+__host__ __device__ constexpr int a_floats(int d, bool stream) {
+  return stream ? kStages * kRows * kChunkStride : kRows * a_stride(d);
 }
 
-__host__ __device__ constexpr int smem_bytes(int d) {
-  return smem_floats(d) * 4 > kMinSmem ? smem_floats(d) * 4 : kMinSmem;
+__host__ __device__ constexpr int smem_floats(int d, bool stream) {
+  return a_floats(d, stream) + kStages * kCols * kChunkStride + kSmall;
 }
+
+__host__ __device__ constexpr int smem_bytes(int d, bool stream) {
+  return smem_floats(d, stream) * 4 > kMinSmem ? smem_floats(d, stream) * 4
+                                               : kMinSmem;
+}
+static_assert(smem_bytes(kMaxTileDepth, false) <= kMaxSmem &&
+                  smem_bytes(kMaxTileDepth + 1, false) > kMaxSmem,
+              "the whole query tile fits up to kMaxTileDepth");
 
 // (d, c) < (bd, bc) lexicographically
 __device__ __forceinline__ bool better(float d, int c, float bd, int bc) {
@@ -193,7 +210,18 @@ __device__ __forceinline__ void stage(float* dst, int stride,
   }
 }
 
-template <int kMode>
+// q += the squares of depths k0 .. k0 + kHalf - 1 of a row in device
+// memory, in order; depths past d add nothing (as the zero-filled staged
+// depths do)
+__device__ __forceinline__ float sq_half_global(const float* row, int k0,
+                                                int d, float q) {
+#pragma unroll 8
+  for (int k = k0; k < k0 + kHalf; ++k)
+    if (k < d) q = fmaf(row[k], row[k], q);
+  return q;
+}
+
+template <int kMode, bool kStream>
 __global__ void __launch_bounds__(kThreads, 2)
 knn2_l2_kernel(const float* __restrict__ a, const float* __restrict__ b,
                const unsigned char* __restrict__ valid2,
@@ -202,9 +230,10 @@ knn2_l2_kernel(const float* __restrict__ a, const float* __restrict__ b,
                int cols_per_split, bool vec, float* __restrict__ d_best,
                float* __restrict__ d_second, int* __restrict__ idx) {
   extern __shared__ __align__(16) float smem[];
-  const int sa = a_stride(d);
-  float* s_a = smem;                                  // [kRows][sa]
-  float* s_b = s_a + kRows * sa;                      // [kStages][kCols][36]
+  // query rows: [kRows][sa] at full depth, or [kStages][kRows][sa] chunks
+  const int sa = kStream ? kChunkStride : a_stride(d);
+  float* s_a = smem;
+  float* s_b = s_a + a_floats(d, kStream);            // [kStages][kCols][68]
   float* s_sq1 = s_b + kStages * kCols * kChunkStride;
   float* s_qx = s_sq1 + kRows;
   float* s_qy = s_qx + kRows;
@@ -237,14 +266,29 @@ knn2_l2_kernel(const float* __restrict__ a, const float* __restrict__ b,
       stage(s_b + (s % kStages) * kCols * kChunkStride, kChunkStride, b,
             cbeg + tile * kCols, cend, d, kc * kDepth, kCols, kDepth, vec,
             tid);
+      if (kStream)
+        stage(s_a + (s % kStages) * kRows * kChunkStride, kChunkStride, a,
+              row0, n1, d, kc * kDepth, kRows, kDepth, vec, tid);
     }
     cp_async_commit();
   };
 
-  if (n_steps > 0)
+  if (n_steps > 0 && !kStream)
     stage(s_a, sa, a, row0, n1, d, 0, kRows, sa - 4, vec, tid);
   load_chunk(0);
   load_chunk(1);
+  if (kStream && n_steps > 0 && nr < kRows) {
+    // row norms in the columns' order: each half over every chunk, then
+    // added; rows past n1 are zero (staged as zeros, never written out)
+    float q = 0.0f;
+    if (row0 + nr < n1) {
+      const float* row = a + (size_t)(row0 + nr) * d;
+      for (int k = nh * kHalf; k < n_kc * kDepth; k += kDepth)
+        q = sq_half_global(row, k, d, q);
+    }
+    q += __shfl_xor_sync(0xffffffffu, q, 1);
+    if (nh == 0) s_sq1[nr] = q;
+  }
   if (tid < kRows && kMode != 0) {
     const int row = min(row0 + tid, n1 - 1);
     s_qx[tid] = pred[2 * row];
@@ -277,7 +321,7 @@ knn2_l2_kernel(const float* __restrict__ a, const float* __restrict__ b,
     cp_async_wait<kStages - 2>();
     __syncthreads();  // chunk s (and at s = 0 the query tile) has landed
     load_chunk(s + kStages - 1);
-    if (s == 0 && nr < kRows) {  // row norms, in the columns' order
+    if (!kStream && s == 0 && nr < kRows) {  // row norms, columns' order
       float q = 0.0f;
       for (int k = nh * kHalf; k < sa - 4; k += kDepth)
         q = sq_half(s_a + nr * sa + k, q);
@@ -296,7 +340,8 @@ knn2_l2_kernel(const float* __restrict__ a, const float* __restrict__ b,
       }
     }
 
-    const float* ca = s_a + kc * kDepth;
+    const float* ca = kStream ? s_a + (s % kStages) * kRows * kChunkStride
+                              : s_a + kc * kDepth;
     const float* cb = s_b + (s % kStages) * kCols * kChunkStride;
     if (nr < kCols) c_sq = sq_half(cb + nr * kChunkStride + nh * kHalf, c_sq);
 #pragma unroll
@@ -429,6 +474,7 @@ knn2_l2_kernel(const float* __restrict__ a, const float* __restrict__ b,
 // clusters of 1..8 blocks, and blocks per SM. Asked of the occupancy
 // calculator once per (device, xy_mode, shared memory) and kept.
 struct Fit {
+  const void* kernel = nullptr;
   int dev = -1, mode = -1, smem = 0;
   int per_sm = 0;
   int clusters[kMaxSplits + 1] = {};
@@ -443,7 +489,8 @@ cudaError_t fit_for(const void* kernel, int mode, int smem, Fit* out) {
   if (err != cudaSuccess) return err;
   std::lock_guard<std::mutex> guard(lock);
   for (const Fit& f : cache)
-    if (f.dev == dev && f.mode == mode && f.smem == smem) {
+    if (f.kernel == kernel && f.dev == dev && f.mode == mode &&
+        f.smem == smem) {
       *out = f;
       return cudaSuccess;
     }
@@ -470,6 +517,7 @@ cudaError_t fit_for(const void* kernel, int mode, int smem, Fit* out) {
     err = cudaOccupancyMaxActiveClusters(&f.clusters[s], kernel, &cfg);
     if (err != cudaSuccess) return err;
   }
+  f.kernel = kernel;
   f.dev = dev;
   f.mode = mode;
   f.smem = smem;
@@ -508,15 +556,15 @@ int choose_splits(const Fit& f, int row_blocks, int n2) {
   return best;
 }
 
-template <int kMode>
+template <int kMode, bool kStream>
 cudaError_t launch(const void* desc1, const void* desc2, const void* valid2,
                    const void* pred, const void* rad2, const void* pts2,
                    int n1, int n2, int d, float* d_best, float* d_second,
                    int* idx, cudaStream_t stream) {
-  const int smem = smem_bytes(d);
+  const int smem = smem_bytes(d, kStream);
   Fit fit;
-  const cudaError_t err =
-      fit_for((const void*)knn2_l2_kernel<kMode>, kMode, smem, &fit);
+  const cudaError_t err = fit_for(
+      (const void*)knn2_l2_kernel<kMode, kStream>, kMode, smem, &fit);
   if (err != cudaSuccess) return err;
   const int row_blocks = (n1 + kRows - 1) / kRows;
   const int splits = choose_splits(fit, row_blocks, n2);
@@ -536,12 +584,27 @@ cudaError_t launch(const void* desc1, const void* desc2, const void* valid2,
   const bool vec = d % 4 == 0 && (size_t)desc1 % 16 == 0 &&
                    (size_t)desc2 % 16 == 0;
   return cudaLaunchKernelEx(
-      &cfg, knn2_l2_kernel<kMode>, static_cast<const float*>(desc1),
+      &cfg, knn2_l2_kernel<kMode, kStream>, static_cast<const float*>(desc1),
       static_cast<const float*>(desc2),
       static_cast<const unsigned char*>(valid2),
       static_cast<const float*>(pred), static_cast<const float*>(rad2),
       static_cast<const float*>(pts2), n1, n2, d, cols_per_split, vec,
       d_best, d_second, idx);
+}
+
+template <bool kStream>
+cudaError_t dispatch(const void* desc1, const void* desc2, const void* valid2,
+                     const void* pred, const void* rad2, const void* pts2,
+                     int n1, int n2, int d, int xy_mode, float* d_best,
+                     float* d_second, int* idx, cudaStream_t stream) {
+  if (xy_mode == 0)
+    return launch<0, kStream>(desc1, desc2, valid2, pred, rad2, pts2, n1, n2,
+                              d, d_best, d_second, idx, stream);
+  if (xy_mode == 1)
+    return launch<1, kStream>(desc1, desc2, valid2, pred, rad2, pts2, n1, n2,
+                              d, d_best, d_second, idx, stream);
+  return launch<2, kStream>(desc1, desc2, valid2, pred, rad2, pts2, n1, n2,
+                            d, d_best, d_second, idx, stream);
 }
 
 }  // namespace
@@ -551,30 +614,27 @@ extern "C" {
 // desc1 (n1, d), desc2 (n2, d) float32 row-major; valid2 (n2,) bool;
 // xy_mode 0: pred, rad2, pts2 unused (may be null); 1: pred (n1, 2),
 // rad2 (n1,), pts2 (n2, 2); 2: pred (n1, 2), rad2 (n2,), pts2 (n2, 2).
-// n1 >= 1, n2 >= 0, 1 <= d <= 640. The column sweep is cut into 1-8
-// slices, one cluster per 64 query rows. Outputs (n1,) float32, float32,
-// int32. One launch on `stream`; returns its cudaError_t (0 on success).
+// n1 >= 1, 0 <= n2 <= 2^30, d >= 1 (past 640 the query tile streams).
+// The column sweep is cut into 1-8 slices, one cluster per 64 query
+// rows. Outputs (n1,) float32, float32, int32. One launch on `stream`;
+// returns its cudaError_t (0 on success).
 int knn2_l2_launch(const void* desc1, const void* desc2, const void* valid2,
                    const void* pred, const void* rad2, const void* pts2,
                    int n1, int n2, int d, int xy_mode, void* d_best,
                    void* d_second, void* idx, void* stream) {
-  if (n1 < 1 || n2 < 0 || d < 1 || xy_mode < 0 || xy_mode > 2 ||
-      smem_bytes(d) > kMaxSmem)
+  if (n1 < 1 || n2 < 0 || n2 > (1 << 30) || d < 1 || xy_mode < 0 ||
+      xy_mode > 2)
     return (int)cudaErrorInvalidValue;
   auto* db = static_cast<float*>(d_best);
   auto* ds = static_cast<float*>(d_second);
   auto* ix = static_cast<int*>(idx);
   auto s = (cudaStream_t)stream;
-  cudaError_t err;
-  if (xy_mode == 0)
-    err = launch<0>(desc1, desc2, valid2, pred, rad2, pts2, n1, n2, d, db, ds,
-                    ix, s);
-  else if (xy_mode == 1)
-    err = launch<1>(desc1, desc2, valid2, pred, rad2, pts2, n1, n2, d, db, ds,
-                    ix, s);
-  else
-    err = launch<2>(desc1, desc2, valid2, pred, rad2, pts2, n1, n2, d, db, ds,
-                    ix, s);
+  const cudaError_t err =
+      d > kMaxTileDepth
+          ? dispatch<true>(desc1, desc2, valid2, pred, rad2, pts2, n1, n2, d,
+                           xy_mode, db, ds, ix, s)
+          : dispatch<false>(desc1, desc2, valid2, pred, rad2, pts2, n1, n2, d,
+                            xy_mode, db, ds, ix, s);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 

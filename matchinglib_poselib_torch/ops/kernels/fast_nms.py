@@ -35,9 +35,9 @@ def fast_nms_score(
 ) -> torch.Tensor:
     """FAST-9/16 score with fused NMS: (B, H, W) float32 -> same.
 
-    threshold in intensity units of the [0, 1] image (fast_threshold/255).
-    On a CUDA tensor the radius is 0..MAX_RADIUS and the threshold is
-    >= 0: the kernel's relu sums equal the plain version's only then.
+    threshold in intensity units of the [0, 1] image (fast_threshold/255),
+    any finite value (its sign picks the kernel's instantiation). On a
+    CUDA tensor the radius is 0..MAX_RADIUS, as the Pallas kernel asserts.
     """
     if imgs.device.type == "cpu":
         return fast_nms_score_plain(imgs, threshold, radius)
@@ -54,10 +54,6 @@ def fast_nms_score(
         raise ValueError(
             f"fast_nms_score: radius {radius} outside 0..{MAX_RADIUS} on the "
             "card"
-        )
-    if not threshold >= 0:
-        raise ValueError(
-            f"fast_nms_score: threshold {threshold} on the card must be >= 0"
         )
     lib = _build.load("fast_nms")
     B, H, W = imgs.shape

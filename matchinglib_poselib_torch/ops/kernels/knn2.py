@@ -8,20 +8,23 @@ pallas/knn.py`` (``knn2``):
   bits, the bit patterns of the JAX package's uint32 words); Hamming
   distances from the tensor cores' b1 AND-popc product
   (``mma.sync.m16n8k256``), exact. The kernel is built for 8 and 16
-  words (256 and 512 bits); on the card the wrapper pads 1 <= W < 8 to 8
-  and 8 < W < 16 to 16 with zero words, which change no distance, and
-  refuses W > 16 (no descriptor row is wider: BOLD's 32 words go
-  through its own masked matcher). ``knn2_plain`` is the dense Hamming
-  matrix + validity penalty + radius gate + lowest-index top-2 at any
-  width, with the same outputs bit for bit. On the card n2 <=
-  ``max_columns(W)`` (2^21 at 8 words, 2^20 at 16: the column field of
-  the kernel's 32-bit key) and the descriptors are 16-byte aligned.
+  words (256 and 512 bits) and for a runtime width, a multiple of 8
+  words; on the card the wrapper pads 1 <= W < 8 to 8, 8 < W < 16 to 16
+  and a wider W to the next multiple of 8 with zero words, which change
+  no distance. One launch takes ``max_columns(W)`` candidates (8 column
+  slices, each within the column field of the kernel's 32-bit key: 2^24
+  at 8 words, 2^23 at 16); past that the wrapper launches once per chunk
+  of candidates and merges the chunks' results (``merge_top2``).
+  Descriptors that are not 16-byte aligned are copied first.
+  ``knn2_plain`` is the dense Hamming matrix + validity penalty + radius
+  gate + lowest-index top-2 at any width, with the same outputs bit for
+  bit.
 - ``knn2_l2`` (``csrc/knn2_l2.cu``), the general body (``_knn2_kernel``):
-  (N, D) float32 descriptors, squared L2 distances in true fp32.
-  ``knn2_l2_plain`` is the dense distance matrix + penalties + the same
-  top-2 rule; the kernel sums its dot products in another order, so the
-  two agree to f32 rounding. On the card D <= 640 (the kernel keeps its
-  query tile in shared memory at full depth).
+  (N, D) float32 descriptors, squared L2 distances in true fp32, any
+  D >= 1 (the query tile stays in shared memory at D <= 640 and streams
+  through it in depth chunks past that). ``knn2_l2_plain`` is the dense
+  distance matrix + penalties + the same top-2 rule; the kernel sums its
+  dot products in another order, so the two agree to f32 rounding.
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. xy_mode 0: no gate; 1: pred (N1, 2), rad2
@@ -38,8 +41,12 @@ import torch
 from matchinglib_poselib_torch.ops.kernels import _build
 
 BIG = 1e9
-# descriptor widths (32-bit words) csrc/knn2.cu is built for
+# descriptor widths (32-bit words) csrc/knn2.cu has fixed instantiations
+# for; wider descriptors take its runtime-width kernel at a multiple of 8
 KERNEL_WORDS = (8, 16)
+# widest descriptor the kernel's key holds (csrc/knn2.cu, kMaxWords)
+MAX_WORDS = (1 << 25) - 8
+_SPLITS = 8  # column slices per launch (the kernel's cluster)
 _PENALTY = 1 << 16  # added to the distance field of invalid / gated keys
 
 
@@ -115,27 +122,106 @@ def _check_args(fn, desc1, desc2, valid2, pred, rad2, pts2, xy_mode,
         raise ValueError(f"{fn}: all inputs must be on one device")
 
 
+def key_column_bits(words: int) -> int:
+    """Bits of the column field of csrc/knn2.cu's 32-bit key at `words`
+    (padded) words: what 31 bits leave beside the distance field, which
+    holds 0..2 * 32 words."""
+    return 31 - (64 * words).bit_length()
+
+
 def max_columns(words: int) -> int:
-    """Most candidates the kernel takes at `words` (padded) words: the
-    column field of csrc/knn2.cu's 32-bit key, 21 bits at 256 bits and 20
-    at 512 (the distance field needs 11 bits there)."""
-    return 1 << (21 if words <= 8 else 20)
+    """Most candidates one launch takes at `words` (padded) words: 8
+    column slices of 2^key_column_bits each (2^24 at 8 words, 2^23 at
+    16)."""
+    return _SPLITS << key_column_bits(words)
 
 
 def kernel_words(words: int) -> int:
     """The width the kernel runs `words`-word descriptors at (zero words
-    padded), or ValueError for a width it does not take."""
+    padded): 8, 16 or the next multiple of 8."""
+    if words < 1:
+        raise ValueError(f"knn2: {words} words per descriptor")
     for w in KERNEL_WORDS:
-        if 1 <= words <= w:
+        if words <= w:
             return w
-    raise ValueError(f"knn2: {words} words per descriptor; the kernel takes "
-                     f"1..{KERNEL_WORDS[-1]}")
+    padded = -(-words // 8) * 8
+    if padded > MAX_WORDS:
+        raise ValueError(f"knn2: {words} words per descriptor, past the "
+                         f"{MAX_WORDS} whose distances fill the kernel's key")
+    return padded
+
+
+def merge_top2(d_best, d_second, idx):
+    """Merge the top-2 results of consecutive column chunks, (C, N1)
+    each, idx global (-1 where a chunk had no candidate): the best of the
+    chunks' bests, ties to the earlier chunk (its columns are the lower
+    ones), and the second-best as the smaller of the winner's second and
+    the other chunks' bests. Returns (d_best, d_second, idx), (N1,)."""
+    n_chunks = d_best.shape[0]
+    best = torch.amin(d_best, dim=0)
+    order = torch.arange(n_chunks, device=d_best.device)[:, None]
+    first = torch.amin(torch.where(d_best == best, order, n_chunks), dim=0,
+                       keepdim=True)
+    second = torch.minimum(
+        torch.gather(d_second, 0, first)[0],
+        torch.amin(torch.where(order == first, BIG, d_best), dim=0))
+    return best, second, torch.gather(idx, 0, first)[0]
+
+
+def _chunked(launch, n2, cap):
+    """One `launch(sl)` per chunk of `cap` candidate columns (sl the
+    chunk's slice), its columns made global, the chunks merged by
+    ``merge_top2``; one launch when n2 <= cap."""
+    if n2 <= cap:
+        return launch(slice(0, n2))
+    outs = []
+    for c0 in range(0, n2, cap):
+        d1, d2, i1 = launch(slice(c0, min(n2, c0 + cap)))
+        outs.append((d1, d2, torch.where(i1 >= 0, i1 + c0, -1)))
+    return merge_top2(*(torch.stack(x) for x in zip(*outs)))
+
+
+def _empty(dev):
+    return (torch.empty((0,), dtype=torch.float32, device=dev),
+            torch.empty((0,), dtype=torch.float32, device=dev),
+            torch.empty((0,), dtype=torch.int32, device=dev))
+
+
+def _ptr(t, xy_mode):
+    return None if t is None or not xy_mode else t.data_ptr()
+
+
+def _launch(lib, fn, counter, desc1, desc2, valid2, pred, rad2, pts2,
+            xy_mode, depth):
+    """One kernel launch of `fn` on (desc1, desc2) and its outputs."""
+    dev = desc1.device
+    n1, n2 = desc1.shape[0], desc2.shape[0]
+    out = (torch.empty((n1,), dtype=torch.float32, device=dev),
+           torch.empty((n1,), dtype=torch.float32, device=dev),
+           torch.empty((n1,), dtype=torch.int32, device=dev))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, f"{fn}_launch")(
+            desc1.data_ptr(), desc2.data_ptr(), valid2.data_ptr(),
+            _ptr(pred, xy_mode), _ptr(rad2, xy_mode), _ptr(pts2, xy_mode),
+            n1, n2, depth, xy_mode, *(o.data_ptr() for o in out), stream,
+        )
+    _build.check(lib, fn, rc)
+    counter.launches += 1
+    return out
+
+
+def _columns(sl, valid2, rad2, pts2, xy_mode):
+    """The candidate-side inputs of one chunk of columns."""
+    return (valid2[sl], rad2[sl] if xy_mode == 2 else rad2,
+            pts2[sl] if xy_mode else pts2)
 
 
 def knn2(desc1, desc2, valid2, pred=None, rad2=None, pts2=None,
          xy_mode: int = 0):
     """Two nearest neighbours (Hamming) of every desc1 row among valid
-    desc2 rows; (N, W) int32 words, 1 <= W <= 16 on the card."""
+    desc2 rows; (N, W) int32 words, any W >= 1 and N2 up to int32's
+    range."""
     if xy_mode not in (0, 1, 2):
         raise ValueError(f"knn2: xy_mode {xy_mode} not in (0, 1, 2)")
     if desc1.device.type == "cpu":
@@ -146,36 +232,24 @@ def knn2(desc1, desc2, valid2, pred=None, rad2=None, pts2=None,
     _check_args("knn2", desc1, desc2, valid2, pred, rad2, pts2, xy_mode,
                 torch.int32, words)
     padded = kernel_words(words)
-    if padded != words:
-        desc1 = torch.nn.functional.pad(desc1, (0, padded - words))
-        desc2 = torch.nn.functional.pad(desc2, (0, padded - words))
-    dev = desc1.device
+    descs = []
+    for d in (desc1, desc2):
+        if padded != words:
+            d = torch.nn.functional.pad(d, (0, padded - words))
+        elif d.data_ptr() % 16:
+            d = d.clone()  # a fresh allocation: 16-byte aligned
+        descs.append(d)
+    desc1, desc2 = descs
     n1, n2 = desc1.shape[0], desc2.shape[0]
-    if n2 > max_columns(padded):
-        raise ValueError(f"knn2: {n2} candidates, the kernel takes at most "
-                         f"{max_columns(padded)} at {padded} words")
-    if desc1.data_ptr() % 16 or desc2.data_ptr() % 16:
-        raise ValueError("knn2: descriptors must be 16-byte aligned")
-    d_best = torch.empty((n1,), dtype=torch.float32, device=dev)
-    d_second = torch.empty((n1,), dtype=torch.float32, device=dev)
-    idx = torch.empty((n1,), dtype=torch.int32, device=dev)
     if n1 == 0:
-        return d_best, d_second, idx
+        return _empty(desc1.device)
     lib = _build.load("knn2")
 
-    def ptr(t):
-        return None if t is None or not xy_mode else t.data_ptr()
-
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.knn2_launch(
-            desc1.data_ptr(), desc2.data_ptr(), valid2.data_ptr(),
-            ptr(pred), ptr(rad2), ptr(pts2), n1, n2, padded, xy_mode,
-            d_best.data_ptr(), d_second.data_ptr(), idx.data_ptr(), stream,
-        )
-    _build.check(lib, "knn2", rc)
-    knn2.launches += 1
-    return d_best, d_second, idx
+    def chunk(sl):
+        v, r, p = _columns(sl, valid2, rad2, pts2, xy_mode)
+        return _launch(lib, "knn2", knn2, desc1, desc2[sl], v, pred, r, p,
+                       xy_mode, padded)
+    return _chunked(chunk, n2, max_columns(padded))
 
 
 knn2.launches = 0
@@ -185,7 +259,10 @@ knn2.launches = 0
 # float descriptors: squared L2 (the general body)
 # ---------------------------------------------------------------------------
 
-MAX_DEPTH = 640  # csrc/knn2_l2.cu keeps the query tile at full depth
+# candidates per K2b launch: the wrapper launches once per chunk of this
+# many columns and merges the chunks (``merge_top2``), so the kernel's
+# int32 column arithmetic (2 x column into pts2) never overflows
+L2_MAX_COLUMNS = 1 << 30
 
 
 def _gate(dist, pred, rad2, pts2, xy_mode):
@@ -244,31 +321,16 @@ def knn2_l2(desc1, desc2, valid2, pred=None, rad2=None, pts2=None,
                              xy_mode)
     if desc1.device.type != "cuda":
         raise ValueError(f"knn2_l2: unsupported device {desc1.device}")
-    if depth > MAX_DEPTH:
-        raise ValueError(f"knn2_l2: depth {depth}, the kernel takes at most "
-                         f"{MAX_DEPTH}")
-    dev = desc1.device
     n1, n2 = desc1.shape[0], desc2.shape[0]
-    d_best = torch.empty((n1,), dtype=torch.float32, device=dev)
-    d_second = torch.empty((n1,), dtype=torch.float32, device=dev)
-    idx = torch.empty((n1,), dtype=torch.int32, device=dev)
     if n1 == 0:
-        return d_best, d_second, idx
+        return _empty(desc1.device)
     lib = _build.load("knn2_l2")
 
-    def ptr(t):
-        return None if t is None or not xy_mode else t.data_ptr()
-
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.knn2_l2_launch(
-            desc1.data_ptr(), desc2.data_ptr(), valid2.data_ptr(),
-            ptr(pred), ptr(rad2), ptr(pts2), n1, n2, depth, xy_mode,
-            d_best.data_ptr(), d_second.data_ptr(), idx.data_ptr(), stream,
-        )
-    _build.check(lib, "knn2_l2", rc)
-    knn2_l2.launches += 1
-    return d_best, d_second, idx
+    def chunk(sl):
+        v, r, p = _columns(sl, valid2, rad2, pts2, xy_mode)
+        return _launch(lib, "knn2_l2", knn2_l2, desc1, desc2[sl], v, pred, r,
+                       p, xy_mode, depth)
+    return _chunked(chunk, n2, L2_MAX_COLUMNS)
 
 
 knn2_l2.launches = 0

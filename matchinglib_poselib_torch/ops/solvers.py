@@ -234,11 +234,17 @@ def nullspace_from_ata(A: torch.Tensor, k: int,
     (smalllinalg.min_eigvec_spd), as in the JAX package; so does one
     system per pair (`pairs`: the leading dims are a pair axis, which the
     JAX package's ``vmap`` hides from its code). Batches of samples keep
-    eigh, as there.
+    eigh, as there. On the card that eigh runs in float64 and casts back:
+    cuSOLVER's batched float32 eigh lands far from the nullspace of the
+    ill-conditioned normal matrices of near-degenerate samples, where
+    LAPACK's float32 eigh (the CPU path, and the JAX package's) does not.
     """
     AtA = A.transpose(-1, -2) @ A
     if k == 1 and (AtA.ndim == 2 or pairs):
         return smalllinalg.min_eigvec_spd(AtA)[..., None]
+    if AtA.is_cuda:
+        _, vecs = torch.linalg.eigh(AtA.double())
+        return vecs[..., :, :k].to(AtA.dtype)
     _, vecs = torch.linalg.eigh(AtA)
     return vecs[..., :, :k]
 

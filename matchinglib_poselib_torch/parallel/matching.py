@@ -43,8 +43,10 @@ def sharded_match(
     valid_db (rows,): this rank's block of the database (``mesh.db_block``
     of the full one; every rank's block has the same rows). Returns a
     MatchResult with global database indices, the same on every rank.
-    Two kernel launches per call on CUDA tensors; past the kernels'
-    limits (``ops/kernels/knn2.py``) the call raises ValueError.
+    Two kernel calls per call on CUDA tensors, forward and reverse: one
+    launch each, or one per chunk of columns where a block is longer
+    than one launch takes (``ops/kernels/knn2.py``), so one card holds a
+    map of any size its memory takes.
     """
     group = mesh.get_group(pmesh.DB_AXIS)
     rows = desc_db.shape[0]

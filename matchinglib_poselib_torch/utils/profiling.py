@@ -23,6 +23,20 @@ from typing import Any
 
 import torch
 
+# the reference's stage names (timeMeasurements, noMatch_poselib-test/
+# main.cpp:61-73, and the matching stages of correspondences.cpp)
+STAGES = (
+    "keypoints",
+    "descriptors",
+    "matching",
+    "filtering",
+    "robEstimationAndRef",
+    "linRefinement",
+    "bundleAdjust",
+    "stereoRefine",
+)
+
+
 class HostSyncs:
     """Count of host reads of device values."""
 
@@ -108,6 +122,7 @@ class StageTimer:
     def __init__(self, verbose: int = 0):
         self.verbose = verbose
         self.times_ms: dict[str, float] = {}
+        self._order: list[str] = []
 
     @contextlib.contextmanager
     def stage(self, name: str, outputs: Any = None):
@@ -118,12 +133,24 @@ class StageTimer:
         finally:
             _sync(holder.get("outputs", outputs))
             dt = (time.perf_counter() - t0) * 1e3
+            if name not in self.times_ms:
+                self._order.append(name)
             self.times_ms[name] = self.times_ms.get(name, 0.0) + dt
             if self.verbose >= 3:
                 print(f"[{name}] {dt:.2f} ms")
 
+    def row(self) -> dict[str, float]:
+        """CSV-ready mapping with the reference column names (a missing
+        stage is 0.0, as timeMeasurements default-initializes it)."""
+        return {f"{s}_ms": round(self.times_ms.get(s, 0.0), 3)
+                for s in STAGES}
+
+    def total_ms(self) -> float:
+        return sum(self.times_ms.values())
+
     def reset(self) -> None:
         self.times_ms.clear()
+        self._order.clear()
 
 
 @contextlib.contextmanager

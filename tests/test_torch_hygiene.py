@@ -381,8 +381,9 @@ def test_kernels_equal_plain_on_the_card():
     """Run on a CUDA card (chip_smoke.py drives the same checks at the
     main path's shapes): FAST+NMS equal to plain away from the border, and
     at every pixel to the plain version of the zero-padded input at
-    ragged shapes and every radius 0..5, radius 6 and a negative threshold
-    refused; 2-NN bit-exact for every xy_mode, also at ragged shapes."""
+    ragged shapes and every radius 0..5, and at a negative threshold;
+    radius 6 refused; 2-NN bit-exact for every xy_mode, also at ragged
+    shapes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     import chip_smoke
@@ -399,8 +400,12 @@ def test_kernels_equal_plain_on_the_card():
     assert ties == 0
     with pytest.raises(ValueError):
         fast_nms.fast_nms_score(imgs, 12.0 / 255.0, fast_nms.MAX_RADIUS + 1)
-    with pytest.raises(ValueError):
-        fast_nms.fast_nms_score(imgs, -12.0 / 255.0, 3)
+    # a negative threshold: its own instantiation, bit-exact at every
+    # pixel against the zero-padded plain version
+    for radius in (0, 3):
+        _, n_ties = chip_smoke.check_fast_nms(
+            torch, fast_nms, imgs, -12.0 / 255.0, radius, min_corners=10)
+        assert n_ties == 0
     n1, n2 = 300, 500
     d1 = torch.from_numpy(rng.integers(-2**31, 2**31, (n1, 8),
                                        dtype=np.int64).astype(np.int32))

@@ -117,9 +117,12 @@ def test_params_to_configs_all_keys(refine_rt):
 def test_params_rejected():
     with pytest.raises(KeyError):
         tri.params_to_configs({"definitely_not_a_param": 1})
-    # the FAST kernel takes thresholds >= 0 only
-    with pytest.raises(ValueError, match="f_detect_th"):
-        tri.params_to_configs({"f_detect_th": "-1"})
+    # a negative threshold is taken, as by the JAX package (the FAST
+    # kernel has an instantiation for t < 0)
+    params = {"f_detect_th": "-1"}
+    assert _plain(tri.params_to_configs(params)) == _plain(
+        jri.params_to_configs(params))
+    assert tri.params_to_configs(params)["det"].fast_threshold == -1.0
     assert tri.params_to_configs({"f_detect_th": "0"})["det"] \
         .fast_threshold == 0.0
 
