@@ -4194,11 +4194,14 @@ DOMAIN_FLOAT_MAP = (65_536, 1024)  # sharded_match's float map: rows, D
 DOMAIN_TIMED_RUNS = 3
 
 
-def _launches(wrapper, fn):
-    """Launches of `wrapper` in one call of `fn`."""
-    before = wrapper.launches
+def _launches(kernel, fn):
+    """Launches of `kernel` ("fast_nms", "knn2" or "knn2_l2") in one call
+    of `fn`."""
+    from matchinglib_poselib_torch.ops import kernels
+
+    before = kernels.launch_counts()[kernel]
     fn()
-    return wrapper.launches - before
+    return kernels.launch_counts()[kernel] - before
 
 
 def k2a_bound(n1, n2, words, guided, n_sm):
@@ -4261,7 +4264,7 @@ def domain_k1(torch, fast_nms, scene, dev, seed, n_sm):
     k = functools.partial(fast_nms.fast_nms_score, one, t, r)
     p = functools.partial(fast_nms.fast_nms_score_plain, one, t, r)
     rec.update(shape=list(one.shape), threshold=t, radius=r,
-               launches_per_call=_launches(fast_nms.fast_nms_score, k),
+               launches_per_call=_launches("fast_nms", k),
                ms=_cuda_ms(torch, k), plain_ms=_cuda_ms(torch, p))
     rec["device_ms"], rec["kernels_per_call"] = _device_profile(torch, k)
     rec["plain_device_ms"] = _device_ms(torch, p)
@@ -4412,7 +4415,7 @@ def domain_map_checks(torch, knn2, m, queries, plants, pred, rad_q, n_sm):
         launches = [min(cap, n_rows - c0) for c0 in range(0, n_rows, cap)]
         dev_ms, per_call = _device_profile(torch, fn, iters=3, name="knn2")
         rec[mode] = {
-            "launches_per_call": _launches(knn2.knn2, fn),
+            "launches_per_call": _launches("knn2", fn),
             "ms": _cuda_ms(torch, fn, iters=3, warm=1),
             "kernels_per_call": per_call, "device_ms": dev_ms,
             "bound_ms_per_launch": [k2a_bound(n_q, c, words, mode > 0,
@@ -4457,7 +4460,7 @@ def domain_wide(torch, knn2, dev, seed, n_sm):
         check_knn2_extreme(torch, knn2, knn2_extreme_cases(torch, dev, w))
         fn = functools.partial(knn2.knn2, *cases[0])
         rec = {"shape": [n, n, 32 * w], "max_abs_err": err,
-               "launches_per_call": _launches(knn2.knn2, fn),
+               "launches_per_call": _launches("knn2", fn),
                "ms": _cuda_ms(torch, fn)}
         rec["device_ms"], rec["kernels_per_call"] = _device_profile(
             torch, fn, name="knn2")
@@ -4514,7 +4517,7 @@ def domain_l2(torch, knn2, dev, seed, n_sm):
             r = {"ms": _cuda_ms(torch, fn),
                  "plain_ms": _cuda_ms(torch, functools.partial(
                      knn2.knn2_l2_plain, *cases[m], xy_mode=m)),
-                 "launches_per_call": _launches(knn2.knn2_l2, fn)}
+                 "launches_per_call": _launches("knn2_l2", fn)}
             r["device_ms"], r["kernels_per_call"] = _device_profile(torch,
                                                                     fn)
             r["bound_ms"], r["bound_by"] = k2b_bound(n, n, depth, m > 0,
@@ -4532,7 +4535,7 @@ def domain_l2(torch, knn2, dev, seed, n_sm):
                 err = max(err, check_knn2_l2(torch, knn2, cases, planted,
                                              gated))
                 rec["chunked_launches_per_call"] = _launches(
-                    knn2.knn2_l2, functools.partial(knn2.knn2_l2, *cases[0]))
+                    "knn2_l2", functools.partial(knn2.knn2_l2, *cases[0]))
             finally:
                 knn2.L2_MAX_COLUMNS = keep
     return recs, err
@@ -4621,7 +4624,7 @@ def domain_sharded(torch, knn2, m, queries, plants, dev, seed):
                                         fvalid, binary=False),
                       (fq, fmap, fvalid, False))}
         for kind, (fn, (qq, table, valid, binary)) in calls.items():
-            wrapper = knn2.knn2 if binary else knn2.knn2_l2
+            kernel = "knn2" if binary else "knn2_l2"
             res = fn()
             got = {k: getattr(res, k) for k in DIST_MATCH_FIELDS}
             ref = _sharded_reference(torch, knn2, qq, table, vq, valid,
@@ -4656,7 +4659,7 @@ def domain_sharded(torch, knn2, m, queries, plants, dev, seed):
                     fails.append(f"{label}: planted rows not found")
             r = {"shape": [n_q, table.shape[0], table.shape[1]
                            * (32 if binary else 1)],
-                 "launches_per_call": _launches(wrapper, fn)}
+                 "launches_per_call": _launches(kernel, fn)}
             ms = []
             for _ in range(DOMAIN_TIMED_RUNS):
                 torch.cuda.synchronize()

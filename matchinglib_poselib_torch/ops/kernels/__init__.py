@@ -1,26 +1,22 @@
 """Hand-written CUDA kernels of the port and their launch counters.
 
-Each wrapper counts its own kernel launches in a plain integer attribute
-(``fast_nms.fast_nms_score.launches``, ``knn2.knn2.launches``,
-``knn2.knn2_l2.launches``); CPU tensors run the plain versions and count
+Each wrapper counts its own kernel launches in the port's counters
+(``utils/profiling.count``): ``fast_nms.launches``, ``knn2.launches``,
+``knn2_l2.launches``; CPU tensors run the plain versions and count
 nothing.
 """
 
 from __future__ import annotations
 
-from matchinglib_poselib_torch.ops.kernels import fast_nms, knn2
+from matchinglib_poselib_torch.utils import profiling
 
-WRAPPERS = {
-    "fast_nms": fast_nms.fast_nms_score,
-    "knn2": knn2.knn2,
-    "knn2_l2": knn2.knn2_l2,
-}
+KERNELS = ("fast_nms", "knn2", "knn2_l2")
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    counts = profiling.counters()
+    return {name: counts.get(f"{name}.launches", 0) for name in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for fn in WRAPPERS.values():
-        fn.launches = 0
+    profiling.reset(*(f"{name}.launches" for name in KERNELS))

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from matchinglib_poselib_torch.ops.kernels import _build
+from matchinglib_poselib_torch.utils import profiling
 
 # largest NMS radius the kernel is built for (as the Pallas kernel's halo)
 MAX_RADIUS = 5
@@ -67,8 +68,5 @@ def fast_nms_score(
             int(radius), stream,
         )
     _build.check(lib, "fast_nms", rc)
-    fast_nms_score.launches += 1
+    profiling.count("fast_nms.launches")
     return out
-
-
-fast_nms_score.launches = 0

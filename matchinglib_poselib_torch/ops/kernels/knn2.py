@@ -39,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from matchinglib_poselib_torch.ops.kernels import _build
+from matchinglib_poselib_torch.utils import profiling
 
 BIG = 1e9
 # descriptor widths (32-bit words) csrc/knn2.cu has fixed instantiations
@@ -191,9 +192,10 @@ def _ptr(t, xy_mode):
     return None if t is None or not xy_mode else t.data_ptr()
 
 
-def _launch(lib, fn, counter, desc1, desc2, valid2, pred, rad2, pts2,
-            xy_mode, depth):
-    """One kernel launch of `fn` on (desc1, desc2) and its outputs."""
+def _launch(lib, fn, desc1, desc2, valid2, pred, rad2, pts2, xy_mode,
+            depth):
+    """One kernel launch of `fn` on (desc1, desc2) and its outputs,
+    counted as ``<fn>.launches``."""
     dev = desc1.device
     n1, n2 = desc1.shape[0], desc2.shape[0]
     out = (torch.empty((n1,), dtype=torch.float32, device=dev),
@@ -207,7 +209,7 @@ def _launch(lib, fn, counter, desc1, desc2, valid2, pred, rad2, pts2,
             n1, n2, depth, xy_mode, *(o.data_ptr() for o in out), stream,
         )
     _build.check(lib, fn, rc)
-    counter.launches += 1
+    profiling.count(f"{fn}.launches")
     return out
 
 
@@ -247,12 +249,9 @@ def knn2(desc1, desc2, valid2, pred=None, rad2=None, pts2=None,
 
     def chunk(sl):
         v, r, p = _columns(sl, valid2, rad2, pts2, xy_mode)
-        return _launch(lib, "knn2", knn2, desc1, desc2[sl], v, pred, r, p,
-                       xy_mode, padded)
+        return _launch(lib, "knn2", desc1, desc2[sl], v, pred, r, p, xy_mode,
+                       padded)
     return _chunked(chunk, n2, max_columns(padded))
-
-
-knn2.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -328,9 +327,6 @@ def knn2_l2(desc1, desc2, valid2, pred=None, rad2=None, pts2=None,
 
     def chunk(sl):
         v, r, p = _columns(sl, valid2, rad2, pts2, xy_mode)
-        return _launch(lib, "knn2_l2", knn2_l2, desc1, desc2[sl], v, pred, r,
-                       p, xy_mode, depth)
+        return _launch(lib, "knn2_l2", desc1, desc2[sl], v, pred, r, p,
+                       xy_mode, depth)
     return _chunked(chunk, n2, L2_MAX_COLUMNS)
-
-
-knn2_l2.launches = 0

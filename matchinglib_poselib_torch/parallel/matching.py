@@ -20,6 +20,7 @@ from matchinglib_poselib_torch.config import LOWE_RATIO
 from matchinglib_poselib_torch.ops.kernels import knn2 as _knn2
 from matchinglib_poselib_torch.ops.matching import MatchResult
 from matchinglib_poselib_torch.parallel import mesh as pmesh
+from matchinglib_poselib_torch.utils import profiling
 
 _BIG = 1e9
 
@@ -48,48 +49,54 @@ def sharded_match(
     than one launch takes (``ops/kernels/knn2.py``), so one card holds a
     map of any size its memory takes.
     """
-    group = mesh.get_group(pmesh.DB_AXIS)
-    rows = desc_db.shape[0]
-    offset = pmesh.axis_index(mesh, pmesh.DB_AXIS) * rows
-    vq = valid_q.to(torch.bool)
-    vdb = valid_db.to(torch.bool)
-    if binary:
-        search = _knn2.knn2
-    else:
-        search = _knn2.knn2_l2
-        desc_q = desc_q.to(torch.float32).contiguous()
-        desc_db = desc_db.to(torch.float32).contiguous()
-    d1, d2, idx = search(desc_q, desc_db, vdb)
-    # reverse: each shard row's best valid query (ties to the lowest), the
-    # JAX package's argmin over the shard's distance columns
-    _, _, col_best = search(desc_db, desc_q, vq)
-    # an invalid query row is all _BIG in the JAX package: (1e9, 1e9, 0);
-    # a row with no valid shard column comes back as column -1 -> 0
-    d1 = torch.where(vq, d1, _BIG)
-    d2 = torch.where(vq, d2, _BIG)
-    gidx = torch.where(vq, torch.clamp(idx, min=0), 0) + offset
-    col_best = torch.clamp(col_best, min=0)
+    with profiling.span("knn.sharded_match"):
+        group = mesh.get_group(pmesh.DB_AXIS)
+        rows = desc_db.shape[0]
+        offset = pmesh.axis_index(mesh, pmesh.DB_AXIS) * rows
+        vq = valid_q.to(torch.bool)
+        vdb = valid_db.to(torch.bool)
+        if binary:
+            search = _knn2.knn2
+        else:
+            search = _knn2.knn2_l2
+            desc_q = desc_q.to(torch.float32).contiguous()
+            desc_db = desc_db.to(torch.float32).contiguous()
+        with profiling.span("knn.forward", desc_q):
+            d1, d2, idx = search(desc_q, desc_db, vdb)
+        # reverse: each shard row's best valid query (ties to the lowest),
+        # the JAX package's argmin over the shard's distance columns
+        with profiling.span("knn.reverse", desc_q):
+            _, _, col_best = search(desc_db, desc_q, vq)
+        with profiling.span("knn.merge", desc_q):
+            # an invalid query row is all _BIG in the JAX package: (1e9,
+            # 1e9, 0); a row with no valid shard column comes back as
+            # column -1 -> 0
+            d1 = torch.where(vq, d1, _BIG)
+            d2 = torch.where(vq, d2, _BIG)
+            gidx = torch.where(vq, torch.clamp(idx, min=0), 0) + offset
+            col_best = torch.clamp(col_best, min=0)
 
-    # merge the S shards' candidates: (S, 3, N1) and (S rows,)
-    n1 = desc_q.shape[0]
-    cand = pmesh.all_gather(torch.stack(
-        [d1.view(torch.int32), d2.view(torch.int32), gidx.to(torch.int32)]
-    )[None], group)
-    colg = pmesh.all_gather(col_best.to(torch.int32), group)
-    d1g = cand[:, 0].view(torch.float32)
-    d2g = cand[:, 1].view(torch.float32)
-    cand_d = torch.cat([d1g, d2g])  # (2S, N1)
-    cand_i = torch.cat([cand[:, 2], torch.full_like(cand[:, 2], -1)])
-    # stable, as jnp.argsort: ties go to the earlier shard, d1 before d2
-    vals, order = torch.sort(cand_d, dim=0, stable=True)
-    best_d, second_d = vals[0], vals[1]
-    best_i = torch.gather(cand_i, 0, order[:1])[0]
+            # merge the S shards' candidates: (S, 3, N1) and (S rows,)
+            n1 = desc_q.shape[0]
+            cand = pmesh.all_gather(torch.stack(
+                [d1.view(torch.int32), d2.view(torch.int32),
+                 gidx.to(torch.int32)])[None], group)
+            colg = pmesh.all_gather(col_best.to(torch.int32), group)
+            d1g = cand[:, 0].view(torch.float32)
+            d2g = cand[:, 1].view(torch.float32)
+            cand_d = torch.cat([d1g, d2g])  # (2S, N1)
+            cand_i = torch.cat([cand[:, 2], torch.full_like(cand[:, 2], -1)])
+            # stable, as jnp.argsort: ties go to the earlier shard, d1
+            # before d2
+            vals, order = torch.sort(cand_d, dim=0, stable=True)
+            best_d, second_d = vals[0], vals[1]
+            best_i = torch.gather(cand_i, 0, order[:1])[0]
 
-    keep = vq & (best_d < _BIG * 0.5)
-    if ratio_test:
-        keep = keep & (best_d < ratio * second_d)
-    if cross_check:
-        keep = keep & (colg[best_i.long()]
-                       == torch.arange(n1, device=best_i.device))
-    return MatchResult(idx=best_i, distance=best_d, second_distance=second_d,
-                       mask=keep)
+            keep = vq & (best_d < _BIG * 0.5)
+            if ratio_test:
+                keep = keep & (best_d < ratio * second_d)
+            if cross_check:
+                keep = keep & (colg[best_i.long()]
+                               == torch.arange(n1, device=best_i.device))
+            return MatchResult(idx=best_i, distance=best_d,
+                               second_distance=second_d, mask=keep)

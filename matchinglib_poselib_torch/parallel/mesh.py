@@ -19,13 +19,18 @@ A ``NamedSharding`` places equal contiguous blocks of axis 0 on the
 devices along a mesh axis; ``block`` gives this rank's block, and
 ``all_gather`` over the same axis puts the blocks back together. gloo
 takes CUDA tensors for both collectives used here (``all_reduce``,
-``all_gather_into_tensor``), so every tensor stays on its device.
+``all_gather_into_tensor``), so every tensor stays on its device. Each
+collective adds 1 to the counter ``collectives`` and the bytes of its
+result on this rank to ``collective_bytes`` (``utils/profiling``): the
+data the algorithm moves, whether or not it crosses a wire.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+from matchinglib_poselib_torch.utils import profiling
 
 PAIRS_AXIS = "pairs"
 DB_AXIS = "db"
@@ -105,11 +110,17 @@ def replicated(mesh, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _count(result: torch.Tensor) -> None:
+    profiling.count("collectives")
+    profiling.count("collective_bytes", result.numel() * result.element_size())
+
+
 def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
     """x summed over the ranks of `group` (a new contiguous tensor when x
     is not contiguous; x itself, summed in place, otherwise)."""
     x = x.contiguous()
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    _count(x)
     return x
 
 
@@ -122,6 +133,7 @@ def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
     dist.all_gather_into_tensor(out, x, group=group)
+    _count(out)
     return out
 
 

@@ -13,6 +13,18 @@ sync each. Inside ``HostSyncs.traced()`` every read also notes its site
 and the loop iteration it ends; ``loop_iterations`` turns that log into
 the iterations of each run of each loop. ``trace`` records a block
 under ``torch.profiler`` into a Chrome trace.
+
+One registry of spans and counters serves the whole port. ``span(name,
+on)`` costs one flag check unless ``torch.profiler`` is recording.
+While the profiler records, a span opens a
+``record_function`` range of its name (its record in the profiler's
+trace, nested under the spans that hold it), adds its host-clock
+milliseconds to the name's sum and, where `on` holds a CUDA tensor,
+records a pair of timing events on that device's current stream: read
+without waiting once the card has passed them, and all at once (one
+synchronize) by ``span_totals``; read events are reused. ``count(name,
+n)`` is always on: the kernels' launches, the collectives and their
+bytes, the host syncs.
 """
 
 from __future__ import annotations
@@ -47,6 +59,7 @@ class HostSyncs:
     @classmethod
     def _note(cls, site: str | None, step: int) -> None:
         cls.count += 1
+        count("host_syncs")
         if cls.log is not None:
             cls.log.append((site, step))
 
@@ -104,6 +117,115 @@ def _sync(x: Any) -> None:
     dev = _cuda_device(x)
     if dev is not None:
         torch.cuda.synchronize(dev)
+
+
+# {name: [spans, host ms, device ms or None]}
+_spans: dict[str, list] = {}
+# (name, device, start event, end event) of spans not yet folded, in the
+# order they ended
+_pending: list[tuple] = []
+# {device: timing events already folded}, reused: under the profiler,
+# creating an event costs the host more than recording one
+_free_events: dict = {}
+_counts: dict[str, int] = {}
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    """An open span while the profiler records (see ``span``)."""
+
+    __slots__ = ("name", "dev", "range", "start", "t0")
+
+    def __init__(self, name: str, dev):
+        self.name, self.dev = name, dev
+
+    def __enter__(self):
+        self.range = torch.profiler.record_function(self.name)
+        self.range.__enter__()
+        self.start = None
+        if self.dev is not None:
+            self.start = _event(self.dev)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        host_ms = (time.perf_counter() - self.t0) * 1e3
+        rec = _spans.setdefault(self.name, [0, 0.0, None])
+        rec[0] += 1
+        rec[1] += host_ms
+        if self.start is not None:
+            end = _event(self.dev)
+            if rec[2] is None:
+                rec[2] = 0.0
+            _pending.append((self.name, self.dev, self.start, end))
+            _fold(wait=False)
+        self.range.__exit__(*exc)
+        return False
+
+
+def _event(dev):
+    """A timing event recorded on `dev`'s current stream."""
+    free = _free_events.get(dev)
+    ev = free.pop() if free else torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(dev))
+    return ev
+
+
+def span(name: str, on: Any = None):
+    """A context manager that times the block as the span `name` while
+    ``torch.profiler`` records, and does nothing otherwise. `on`: a tensor
+    (or a nested tuple of them); where one is a CUDA tensor, the span's
+    device time is taken on that device's current stream. Never
+    synchronizes."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return _Span(name, _cuda_device(on))
+
+
+def _fold(wait: bool) -> None:
+    """Add the device time of pending spans to their sums and free their
+    events for reuse: all of them (`wait`, after one synchronize per
+    device), else the oldest ones up to the first still running."""
+    if wait:
+        for dev in {p[1] for p in _pending}:
+            torch.cuda.synchronize(dev)
+    done = 0
+    for name, dev, start, end in _pending:
+        if not (wait or end.query()):
+            break
+        _spans[name][2] += start.elapsed_time(end)
+        _free_events.setdefault(dev, []).extend((start, end))
+        done += 1
+    del _pending[:done]
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the counter `name`."""
+    _counts[name] = _counts.get(name, 0) + n
+
+
+def span_totals() -> dict[str, dict]:
+    """{span name: {"count", "host_ms", "device_ms"}} summed over every
+    span so far; "device_ms" is None for a span that never ran on a card.
+    Synchronizes once with each card that spans wait on."""
+    _fold(wait=True)
+    return {name: {"count": c, "host_ms": h, "device_ms": d}
+            for name, (c, h, d) in _spans.items()}
+
+
+def counters() -> dict[str, int]:
+    return dict(_counts)
+
+
+def reset(*names: str) -> None:
+    """Clear every span and counter, or only the counters `names`."""
+    if names:
+        for name in names:
+            _counts.pop(name, None)
+        return
+    _spans.clear()
+    _pending.clear()
+    _counts.clear()
 
 
 class StageTimer:

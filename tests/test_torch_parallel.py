@@ -267,6 +267,79 @@ def test_float_sharded_match_matches_jax(worlds, label):
 
 
 # ---------------------------------------------------------------------------
+# sharded_match's spans and counters (utils/profiling)
+# ---------------------------------------------------------------------------
+
+SPAN_MESHES = ["2x2", "1x4", "4x1", "1x1"]
+
+
+def _world(label):
+    return 1 if label == "1x1" else 4
+
+
+@pytest.mark.parametrize("label", SPAN_MESHES)
+def test_sharded_match_spans_are_off_without_the_profiler(worlds, label):
+    """No record_function, no CUDA event and no span without the
+    profiler."""
+    for r, out in enumerate(worlds.ranks(_world(label))):
+        assert out[f"{label}/spans/off_calls"] == 0, r
+        assert out[f"{label}/spans/off_spans"] == 0, r
+
+
+@pytest.mark.parametrize("label", SPAN_MESHES)
+def test_sharded_match_spans_nest_under_the_profiler(worlds, label):
+    """Each span once per call, no device time on the CPU, and the
+    trace's ranges of the three parts in order inside the whole call."""
+    import json
+
+    for r, out in enumerate(worlds.ranks(_world(label))):
+        np.testing.assert_array_equal(out[f"{label}/spans/counts"],
+                                      [1] * len(worker.SPANS))
+        assert out[f"{label}/spans/device_ms_none"].all()
+        with open(worker.trace_path(worlds.dirs[_world(label)], r,
+                                    label)) as f:
+            events = json.load(f)["traceEvents"]
+        ranges = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
+                  if e.get("cat") == "user_annotation"
+                  and e["name"] in worker.SPANS}
+        assert sorted(ranges) == sorted(worker.SPANS), r
+        start, end = ranges[worker.SPANS[0]]
+        last = start
+        for name in worker.SPANS[1:]:
+            a, b = ranges[name]
+            assert last <= a <= b <= end, (r, name)
+            last = b
+
+
+@pytest.mark.parametrize("label", SPAN_MESHES)
+def test_sharded_match_same_with_and_without_the_profiler(worlds, label):
+    for r, out in enumerate(worlds.ranks(_world(label))):
+        for k in MATCH_FIELDS:
+            np.testing.assert_array_equal(out[f"{label}/spans/on/{k}"],
+                                          out[f"{label}/spans/off/{k}"],
+                                          err_msg=f"rank {r}: {k}")
+            if label != "4x1":
+                np.testing.assert_array_equal(
+                    out[f"{label}/spans/on/{k}"],
+                    out[f"{label}/binary/{k}"], err_msg=f"rank {r}: {k}")
+
+
+@pytest.mark.parametrize("label", SPAN_MESHES)
+def test_sharded_match_counts_collectives_and_bytes(worlds, label):
+    """Two all-gathers a call, and the bytes each leaves on the rank: the
+    (S, 3, N1) candidates and every database row's best query, int32."""
+    shards = int(label.split("x")[1])
+    want = 4 * (3 * worker.N_Q * shards + worker.N_DB)
+    for r, out in enumerate(worlds.ranks(_world(label))):
+        assert out[f"{label}/spans/collectives"] == 2, r
+        assert out[f"{label}/spans/collective_bytes"] == want, r
+    if label == "4x1":
+        # a rank of the world of 4 holding the whole map moves what the
+        # world of 1 does
+        assert want == worlds.ranks(1)[0]["1x1/spans/collective_bytes"]
+
+
+# ---------------------------------------------------------------------------
 # point-sharded BA
 # ---------------------------------------------------------------------------
 

@@ -7,7 +7,9 @@ FileStore, builds the meshes of its world (world 4: 2 x 2, 1 x 4 and
 4 x 1; world 1: 1 x 1), runs the port's distributed functions on the
 seeded inputs of ``binary_case``, ``float_case``, ``ba_case`` and
 ``consensus_case`` (and on the golden stream poses of <inputs.npz>), and
-writes every output to <out_dir>/rank<r>.npz. The test process builds the
+writes every output to <out_dir>/rank<r>.npz; ``spans_case`` adds the
+profiler's trace of one ``sharded_match`` per mesh as
+<out_dir>/rank<r>_<mesh>_trace.json. The test process builds the
 same inputs from the same functions for the JAX package.
 """
 
@@ -26,6 +28,8 @@ N_Q, N_DB, WORDS = 64, 256, 8
 N_QF, N_DBF, DEPTH = 32, 128, 128
 BA_POINTS, BA_ITERATIONS = 256, 8
 FRAMES = 16
+# sharded_match's spans, outermost first
+SPANS = ("knn.sharded_match", "knn.forward", "knn.reverse", "knn.merge")
 
 
 def binary_case(layout_shards: int, seed: int = 7):
@@ -123,6 +127,56 @@ def _match_out(out, key, res):
         out[f"{key}/{name}"] = getattr(res, name).numpy()
 
 
+def trace_path(out_dir, rank: int, label: str) -> str:
+    return os.path.join(out_dir, f"rank{rank}_{label}_trace.json")
+
+
+def spans_case(m, label: str, args, out: dict, out_dir, rank: int):
+    """One binary ``sharded_match`` with the profiler off, with
+    ``torch.profiler.record_function`` and ``torch.cuda.Event`` replaced by
+    fakes that note each call (the calls it made, the spans and the
+    counters it left), then one under the profiler (CPU activity: each
+    span's count and whether its device time is None; the trace)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from matchinglib_poselib_torch.parallel.matching import sharded_match
+    from matchinglib_poselib_torch.utils import profiling
+
+    made = []
+    real = torch.profiler.record_function, torch.cuda.Event
+
+    def noting(fn):
+        def call(*a, **k):
+            made.append(fn)
+            return fn(*a, **k)
+        return call
+    profiling.reset()
+    torch.profiler.record_function, torch.cuda.Event = map(noting, real)
+    try:
+        off = sharded_match(m, *args)
+    finally:
+        torch.profiler.record_function, torch.cuda.Event = real
+    key = f"{label}/spans"
+    counts = profiling.counters()
+    out[f"{key}/off_calls"] = np.array(len(made))
+    out[f"{key}/off_spans"] = np.array(len(profiling.span_totals()))
+    out[f"{key}/collectives"] = np.array(counts.get("collectives", 0))
+    out[f"{key}/collective_bytes"] = np.array(
+        counts.get("collective_bytes", 0))
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        on = sharded_match(m, *args)
+    prof.export_chrome_trace(trace_path(out_dir, rank, label))
+    totals = profiling.span_totals()
+    out[f"{key}/counts"] = np.array([totals.get(n, {}).get("count", 0)
+                                     for n in SPANS])
+    out[f"{key}/device_ms_none"] = np.array(
+        [n in totals and totals[n]["device_ms"] is None for n in SPANS])
+    _match_out(out, f"{key}/off", off)
+    _match_out(out, f"{key}/on", on)
+
+
 def _run(rank: int, world: int, store: str, inputs: str, out_dir: str):
     import torch
     import torch.distributed as dist
@@ -145,12 +199,13 @@ def _run(rank: int, world: int, store: str, inputs: str, out_dir: str):
         out[f"{label}/coordinate"] = np.array(
             [pmesh.axis_index(m, pmesh.PAIRS_AXIS),
              pmesh.axis_index(m, pmesh.DB_AXIS)])
+        dq, ddb, vq, vdb = binary_case(n_db if world > 1 else 4)
+        binary = (torch.as_tensor(dq.view(np.int32)),
+                  pmesh.db_block(m, torch.as_tensor(ddb.view(np.int32))),
+                  torch.as_tensor(vq), pmesh.db_block(m, torch.as_tensor(vdb)))
+        spans_case(m, label, binary, out, out_dir, rank)
         if label != "4x1":
-            dq, ddb, vq, vdb = binary_case(n_db if world > 1 else 4)
-            _match_out(out, f"{label}/binary", sharded_match(
-                m, torch.as_tensor(dq.view(np.int32)),
-                pmesh.db_block(m, torch.as_tensor(ddb.view(np.int32))),
-                torch.as_tensor(vq), pmesh.db_block(m, torch.as_tensor(vdb))))
+            _match_out(out, f"{label}/binary", sharded_match(m, *binary))
             fq, fdb, fvq, fvdb = float_case()
             _match_out(out, f"{label}/float", sharded_match(
                 m, torch.as_tensor(fq),
