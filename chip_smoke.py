@@ -4143,7 +4143,8 @@ def dist_lines(recs, smi, n_sm):
                 n_q, rows, width = line["shape_per_rank"] = per[0]["shape"]
                 fwd = dist_knn_bound(fn == "binary_match", n_q, rows, width,
                                      n_sm)
-                rev = dist_knn_bound(fn == "binary_match", rows, n_q, width,
+                # the cross-check's reverse: the n_q rows the matches name
+                rev = dist_knn_bound(fn == "binary_match", n_q, n_q, width,
                                      n_sm)
                 line["bound_ms_forward_reverse"] = [fwd[0], rev[0]]
                 line["bound_by"] = fwd[1]

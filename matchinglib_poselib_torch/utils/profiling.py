@@ -24,7 +24,8 @@ records a pair of timing events on that device's current stream: read
 without waiting once the card has passed them, and all at once (one
 synchronize) by ``span_totals``; read events are reused. ``count(name,
 n)`` is always on: the kernels' launches, the collectives and their
-bytes, the host syncs.
+bytes, the host syncs, the rows ``sharded_match`` searches in reverse
+(``knn.reverse_rows``).
 """
 
 from __future__ import annotations

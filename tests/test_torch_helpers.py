@@ -329,3 +329,44 @@ def check_batch_vs_singles(estimate, pts, cfg, streams):
     assert loop_iterations(log) == {k: max(a.get(k, 0) for a in alone)
                                     for k in runs}
     return pose
+
+
+def exhaustive_sharded_match(q, db, vq, vdb, shards: int, binary=True,
+                             ratio=None, ratio_test=True, cross_check=True):
+    """``parallel.matching.sharded_match`` over `shards` equal contiguous
+    blocks of (db, vdb), in one process and with the exhaustive reverse:
+    every block row's best valid query (the JAX package's argmin over its
+    shard's distance columns), read at the merged matches' rows. The
+    forward search, the merge and the tie rules are sharded_match's; the
+    plain K2a / K2b of CPU tensors. Returns {field: tensor}."""
+    from matchinglib_poselib_torch.config import LOWE_RATIO
+    from matchinglib_poselib_torch.ops.kernels import knn2
+
+    big = 1e9
+    ratio = LOWE_RATIO if ratio is None else ratio
+    search = knn2.knn2 if binary else knn2.knn2_l2
+    if not binary:
+        q, db = q.to(torch.float32), db.to(torch.float32)
+    vq, vdb = vq.to(torch.bool), vdb.to(torch.bool)
+    rows = db.shape[0] // shards
+    d1s, d2s, gis, cols = [], [], [], []
+    for s in range(shards):
+        blk = slice(s * rows, (s + 1) * rows)
+        d1, d2, idx = search(q, db[blk].contiguous(), vdb[blk].contiguous())
+        d1s.append(torch.where(vq, d1, big))
+        d2s.append(torch.where(vq, d2, big))
+        gis.append(torch.where(vq, idx.clamp(min=0), 0) + s * rows)
+        cols.append(search(db[blk].contiguous(), q, vq)[2].clamp(min=0))
+    cand_d = torch.cat([torch.stack(d1s), torch.stack(d2s)])
+    ig = torch.stack(gis).to(torch.int32)
+    cand_i = torch.cat([ig, torch.full_like(ig, -1)])
+    vals, order = torch.sort(cand_d, dim=0, stable=True)
+    best_i = torch.gather(cand_i, 0, order[:1])[0]
+    keep = vq & (vals[0] < big * 0.5)
+    if ratio_test:
+        keep = keep & (vals[0] < ratio * vals[1])
+    if cross_check:
+        keep = keep & (torch.cat(cols)[best_i.long()]
+                       == torch.arange(q.shape[0]))
+    return {"idx": best_i, "distance": vals[0], "second_distance": vals[1],
+            "mask": keep}

@@ -21,6 +21,13 @@ Bars:
 - float ``sharded_match`` (32 x 128 x 128): distances within 1e-5 (1 +
   |d|), idx equal where the gap exceeds that, masks equal outside rows
   near a tie of the ratio test or of the best candidate;
+- ``sharded_match`` on ``reverse_case`` (copied and near-copied
+  queries, duplicated rows, invalid slots, a wholly invalid shard),
+  binary and float, with the ratio test and the cross-check on and off:
+  every field of every row equal, on every rank, to the exhaustive
+  reverse over the same shards (``exhaustive_sharded_match``); two
+  all-gathers (4 (3 + 1) N1 S bytes) and N1 rows searched in reverse a
+  call with the cross-check, one (4 3 N1 S bytes) and none without;
 - ``bundle_adjust_sharded`` (256 points, 2 cameras, 8 iterations) against
   the JAX package's on the same mesh, and the port's against its own
   single-process result: R and t within 5e-4, points within 5e-3,
@@ -66,7 +73,9 @@ from matchinglib_poselib_torch.models.stereo_refine import StereoRefine
 from matchinglib_poselib_torch.parallel import mesh as tmesh
 
 import torch_parallel_worker as worker
-from test_torch_helpers import dir_angle_deg, rot_chordal_deg
+from test_torch_helpers import (
+    dir_angle_deg, exhaustive_sharded_match, rot_chordal_deg,
+)
 
 RANK_TIMEOUT_S = 120
 MATCH_FIELDS = ("idx", "distance", "second_distance", "mask")
@@ -327,9 +336,10 @@ def test_sharded_match_same_with_and_without_the_profiler(worlds, label):
 @pytest.mark.parametrize("label", SPAN_MESHES)
 def test_sharded_match_counts_collectives_and_bytes(worlds, label):
     """Two all-gathers a call, and the bytes each leaves on the rank: the
-    (S, 3, N1) candidates and every database row's best query, int32."""
+    (S, 3, N1) candidates and the (S, N1) best queries of the rows the
+    matches name, int32."""
     shards = int(label.split("x")[1])
-    want = 4 * (3 * worker.N_Q * shards + worker.N_DB)
+    want = 4 * (3 * worker.N_Q * shards + worker.N_Q * shards)
     for r, out in enumerate(worlds.ranks(_world(label))):
         assert out[f"{label}/spans/collectives"] == 2, r
         assert out[f"{label}/spans/collective_bytes"] == want, r
@@ -337,6 +347,56 @@ def test_sharded_match_counts_collectives_and_bytes(worlds, label):
         # a rank of the world of 4 holding the whole map moves what the
         # world of 1 does
         assert want == worlds.ranks(1)[0]["1x1/spans/collective_bytes"]
+
+
+@pytest.mark.parametrize("kind", ["binary", "float"])
+@pytest.mark.parametrize("label", SPAN_MESHES)
+def test_named_row_reverse_equals_the_exhaustive_reverse(worlds, label,
+                                                         kind):
+    """Every field of every row, on every rank and at every (ratio test,
+    cross-check) setting, equal to the exhaustive reverse over the same
+    shards in one process (``exhaustive_sharded_match``), on
+    reverse_case's copies, near copies, duplicated rows, invalid slots
+    and wholly invalid shard."""
+    shards = int(label.split("x")[1])
+    q, db, vq, vdb = (torch.as_tensor(a) for a in worker.reverse_case(
+        kind == "binary", worker.reverse_layout(shards)))
+    for ratio_test, cross_check in worker.FLAGS:
+        key = f"{label}/reverse/{kind}/{int(ratio_test)}{int(cross_check)}"
+        want = exhaustive_sharded_match(
+            q, db, vq, vdb, shards, binary=kind == "binary",
+            ratio_test=ratio_test, cross_check=cross_check)
+        for r, out in enumerate(worlds.ranks(_world(label))):
+            for k in MATCH_FIELDS:
+                np.testing.assert_array_equal(
+                    out[f"{key}/{k}"], want[k].numpy(),
+                    err_msg=f"rank {r}: {key}/{k}")
+        if cross_check:
+            # the case reaches the cross-check: it drops matches the
+            # forward pass and the ratio test keep
+            loose = exhaustive_sharded_match(
+                q, db, vq, vdb, shards, binary=kind == "binary",
+                ratio_test=ratio_test, cross_check=False)["mask"]
+            assert (loose & ~want["mask"]).sum() >= 2, key
+            assert want["mask"].sum() >= 5, key
+
+
+@pytest.mark.parametrize("label", SPAN_MESHES)
+def test_cross_check_costs_one_collective_of_n1_ints(worlds, label):
+    """With the cross-check a call makes two all-gathers, (S, 3, N1) and
+    (S, N1) int32, and searches N1 rows in reverse; without it one
+    all-gather and no reverse row."""
+    shards = int(label.split("x")[1])
+    for r, out in enumerate(worlds.ranks(_world(label))):
+        for kind, n1 in (("binary", worker.N_Q), ("float", worker.N_QF)):
+            for ratio_test, cross_check in worker.FLAGS:
+                key = (f"{label}/reverse/{kind}/"
+                       f"{int(ratio_test)}{int(cross_check)}")
+                c = int(cross_check)
+                assert out[f"{key}/collectives"] == 1 + c, (r, key)
+                assert out[f"{key}/collective_bytes"] == \
+                    4 * (3 + c) * n1 * shards, (r, key)
+                assert out[f"{key}/knn.reverse_rows"] == c * n1, (r, key)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,8 @@ Imports torch and numpy only (never jax): it joins the world through a
 FileStore, builds the meshes of its world (world 4: 2 x 2, 1 x 4 and
 4 x 1; world 1: 1 x 1), runs the port's distributed functions on the
 seeded inputs of ``binary_case``, ``float_case``, ``ba_case`` and
-``consensus_case`` (and on the golden stream poses of <inputs.npz>), and
+``consensus_case`` (and on the golden stream poses of <inputs.npz>),
+``sharded_match`` on ``reverse_case`` at every ``FLAGS`` setting, and
 writes every output to <out_dir>/rank<r>.npz; ``spans_case`` adds the
 profiler's trace of one ``sharded_match`` per mesh as
 <out_dir>/rank<r>_<mesh>_trace.json. The test process builds the
@@ -28,8 +29,10 @@ N_Q, N_DB, WORDS = 64, 256, 8
 N_QF, N_DBF, DEPTH = 32, 128, 128
 BA_POINTS, BA_ITERATIONS = 256, 8
 FRAMES = 16
-# sharded_match's spans, outermost first
-SPANS = ("knn.sharded_match", "knn.forward", "knn.reverse", "knn.merge")
+# sharded_match's spans, outermost first, the parts in their order
+SPANS = ("knn.sharded_match", "knn.forward", "knn.merge", "knn.reverse")
+# sharded_match's (ratio_test, cross_check) settings in reverse_case
+FLAGS = ((True, True), (True, False), (False, True), (False, False))
 
 
 def binary_case(layout_shards: int, seed: int = 7):
@@ -65,6 +68,51 @@ def float_case(seed: int = 8):
         return (a / np.linalg.norm(a, axis=1, keepdims=True)).astype(
             np.float32)
     return unit(dq), unit(ddb), rng.random(N_QF) > 0.1, rng.random(N_DBF) > 0.1
+
+
+def reverse_case(binary: bool, layout_shards: int, seed: int = 9):
+    """The cross-check's hard cases, binary (N_Q x N_DB x WORDS) or float
+    (N_QF x N_DBF x DEPTH, unit rows): the last eighth of the queries
+    exact copies of the first (a tie in the reverse search: the copy
+    loses, but for query 0, invalid, whose copy wins), the eighth before them near copies of the second eighth (a
+    few bits, or 0.02 of noise: two queries naming one row), partners
+    planted for the first half of the queries, a sixteenth of them twice
+    (a tie between two map rows), ~10% of the query and map slots
+    invalid, and map shard 1 of `layout_shards` wholly invalid."""
+    rng = np.random.default_rng(seed)
+    nq, ndb = (N_Q, N_DB) if binary else (N_QF, N_DBF)
+    e = nq // 8
+    if binary:
+        dq = rng.integers(0, 2**32, size=(nq, WORDS), dtype=np.uint32)
+        bit = np.uint32(1) << rng.integers(0, 32, size=(e, WORDS),
+                                           dtype=np.uint32)
+        dq[-2 * e:-e] = dq[e:2 * e] ^ np.where(
+            rng.random((e, WORDS)) < 0.3, bit, np.uint32(0))
+        ddb = rng.integers(0, 2**32, size=(ndb, WORDS), dtype=np.uint32)
+    else:
+        def unit(a):
+            return (a / np.linalg.norm(a, axis=1, keepdims=True)).astype(
+                np.float32)
+        dq = rng.normal(size=(nq, DEPTH))
+        dq[-2 * e:-e] = dq[e:2 * e] + rng.normal(scale=0.02,
+                                                 size=(e, DEPTH))
+        dq = unit(dq)
+        ddb = unit(rng.normal(size=(ndb, DEPTH)))
+    dq[-e:] = dq[:e]
+    pos = rng.permutation(ndb)
+    half = nq // 2
+    ddb[pos[:half]] = dq[:half] if binary else unit(
+        dq[:half] + rng.normal(scale=0.01, size=(half, DEPTH)))
+    ddb[pos[half:half + e // 2]] = ddb[pos[:e // 2]]
+    vq = rng.random(nq) > 0.1
+    # query 0 invalid, its copy valid: the copy wins its row's reverse
+    vq[0], vq[nq - e] = False, True
+    vdb = rng.random(ndb) > 0.1
+    rows = ndb // layout_shards
+    vdb[rows:2 * rows] = False
+    if binary:
+        dq, ddb = dq.view(np.int32), ddb.view(np.int32)
+    return dq, ddb, vq, vdb
 
 
 def _rodrigues(axis, ang):
@@ -177,6 +225,39 @@ def spans_case(m, label: str, args, out: dict, out_dir, rank: int):
     _match_out(out, f"{key}/on", on)
 
 
+def reverse_layout(n_db: int) -> int:
+    """The shards reverse_case lays out for a mesh of `n_db` db ranks:
+    its own, or quarters where the map is one block."""
+    return n_db if n_db > 1 else 4
+
+
+def reverse_cases(m, label: str, out: dict):
+    """``sharded_match`` on reverse_case's binary and float inputs at every
+    FLAGS setting: each call's outputs, and the counters it left
+    (collectives, collective_bytes, knn.reverse_rows)."""
+    import torch
+
+    from matchinglib_poselib_torch.parallel import mesh as pmesh
+    from matchinglib_poselib_torch.parallel.matching import sharded_match
+    from matchinglib_poselib_torch.utils import profiling
+
+    layout = reverse_layout(pmesh.axis_size(m, pmesh.DB_AXIS))
+    for kind in ("binary", "float"):
+        q, db, vq, vdb = (torch.as_tensor(a) for a in
+                          reverse_case(kind == "binary", layout))
+        args = (q, pmesh.db_block(m, db), vq, pmesh.db_block(m, vdb))
+        for ratio_test, cross_check in FLAGS:
+            key = f"{label}/reverse/{kind}/{int(ratio_test)}{int(cross_check)}"
+            profiling.reset()
+            _match_out(out, key, sharded_match(
+                m, *args, binary=kind == "binary", ratio_test=ratio_test,
+                cross_check=cross_check))
+            counts = profiling.counters()
+            for name in ("collectives", "collective_bytes",
+                         "knn.reverse_rows"):
+                out[f"{key}/{name}"] = np.array(counts.get(name, -1))
+
+
 def _run(rank: int, world: int, store: str, inputs: str, out_dir: str):
     import torch
     import torch.distributed as dist
@@ -204,6 +285,7 @@ def _run(rank: int, world: int, store: str, inputs: str, out_dir: str):
                   pmesh.db_block(m, torch.as_tensor(ddb.view(np.int32))),
                   torch.as_tensor(vq), pmesh.db_block(m, torch.as_tensor(vdb)))
         spans_case(m, label, binary, out, out_dir, rank)
+        reverse_cases(m, label, out)
         if label != "4x1":
             _match_out(out, f"{label}/binary", sharded_match(m, *binary))
             fq, fdb, fvq, fvdb = float_case()
