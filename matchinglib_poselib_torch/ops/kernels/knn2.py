@@ -14,7 +14,11 @@ pallas/knn.py`` (``knn2``):
   no distance. One launch takes ``max_columns(W)`` candidates (8 column
   slices, each within the column field of the kernel's 32-bit key: 2^24
   at 8 words, 2^23 at 16); past that the wrapper launches once per chunk
-  of candidates and merges the chunks' results (``merge_top2``).
+  of candidates and merges the chunks' results (``merge_top2``): such a
+  call counts its launches as ``knn2.chunks`` and times the merge (the
+  columns made global, ``merge_top2``) as the span ``knn2.chunk_merge``
+  (``utils/profiling``; ``knn2_l2.chunks`` and ``knn2_l2.chunk_merge``
+  on the float path). A call of one launch does neither.
   Descriptors that are not 16-byte aligned are copied first.
   ``knn2_plain`` is the dense Hamming matrix + validity penalty + radius
   gate + lowest-index top-2 at any width, with the same outputs bit for
@@ -169,17 +173,22 @@ def merge_top2(d_best, d_second, idx):
     return best, second, torch.gather(idx, 0, first)[0]
 
 
-def _chunked(launch, n2, cap):
+def _chunked(launch, n2, cap, fn):
     """One `launch(sl)` per chunk of `cap` candidate columns (sl the
-    chunk's slice), its columns made global, the chunks merged by
-    ``merge_top2``; one launch when n2 <= cap."""
+    chunk's slice), then the chunks' columns made global and the chunks
+    merged by ``merge_top2``; one launch when n2 <= cap. Past one launch,
+    the launches count as ``<fn>.chunks`` and the merge is the span
+    ``<fn>.chunk_merge``."""
     if n2 <= cap:
         return launch(slice(0, n2))
-    outs = []
-    for c0 in range(0, n2, cap):
-        d1, d2, i1 = launch(slice(c0, min(n2, c0 + cap)))
-        outs.append((d1, d2, torch.where(i1 >= 0, i1 + c0, -1)))
-    return merge_top2(*(torch.stack(x) for x in zip(*outs)))
+    outs = [launch(slice(c0, min(n2, c0 + cap)))
+            for c0 in range(0, n2, cap)]
+    profiling.count(f"{fn}.chunks", len(outs))
+    with profiling.span(f"{fn}.chunk_merge", outs[-1]):
+        d1, d2, idx = (torch.stack(x) for x in zip(*outs))
+        c0 = torch.arange(0, n2, cap, dtype=idx.dtype, device=idx.device)
+        idx = torch.where(idx >= 0, idx + c0[:, None], -1)
+        return merge_top2(d1, d2, idx)
 
 
 def _empty(dev):
@@ -251,7 +260,7 @@ def knn2(desc1, desc2, valid2, pred=None, rad2=None, pts2=None,
         v, r, p = _columns(sl, valid2, rad2, pts2, xy_mode)
         return _launch(lib, "knn2", desc1, desc2[sl], v, pred, r, p, xy_mode,
                        padded)
-    return _chunked(chunk, n2, max_columns(padded))
+    return _chunked(chunk, n2, max_columns(padded), "knn2")
 
 
 # ---------------------------------------------------------------------------
@@ -329,4 +338,4 @@ def knn2_l2(desc1, desc2, valid2, pred=None, rad2=None, pts2=None,
         v, r, p = _columns(sl, valid2, rad2, pts2, xy_mode)
         return _launch(lib, "knn2_l2", desc1, desc2[sl], v, pred, r, p,
                        xy_mode, depth)
-    return _chunked(chunk, n2, L2_MAX_COLUMNS)
+    return _chunked(chunk, n2, L2_MAX_COLUMNS, "knn2_l2")

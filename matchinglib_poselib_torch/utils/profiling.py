@@ -22,10 +22,14 @@ trace, nested under the spans that hold it), adds its host-clock
 milliseconds to the name's sum and, where `on` holds a CUDA tensor,
 records a pair of timing events on that device's current stream: read
 without waiting once the card has passed them, and all at once (one
-synchronize) by ``span_totals``; read events are reused. ``count(name,
-n)`` is always on: the kernels' launches, the collectives and their
-bytes, the host syncs, the rows ``sharded_match`` searches in reverse
-(``knn.reverse_rows``).
+synchronize) by ``span_totals``; read events are reused. The spans:
+``sharded_match``'s ``knn.sharded_match``, ``knn.forward``, ``knn.merge``
+and ``knn.reverse``, and a 2-NN call's merge of its column chunks past
+one launch (``knn2.chunk_merge``, ``knn2_l2.chunk_merge``). ``count(name,
+n)`` is always on: the kernels' launches, the launches of a 2-NN call
+past one launch (``knn2.chunks``, ``knn2_l2.chunks``), the collectives
+and their bytes, the host syncs, the rows ``sharded_match`` searches in
+reverse (``knn.reverse_rows``).
 """
 
 from __future__ import annotations
