@@ -1,29 +1,15 @@
-"""K2a's share of its roofline, counted at the least work of exact 2-NN
-with the cross-check: the forward search of a query's rows against every
-map row, and the reverse search of at most as many rows, those the
-forward matches name (``rooflines/k2a.py``, from the run's configuration),
-over K2a's device time per request, summed over all its launches in the
-traced requests (torch.profiler)."""
-
-
-def least_s(config: dict, k2a) -> float:
-    """K2a's least time per query of the map configuration `config`."""
-    n1 = config["slots"]
-    bits = 32 * config["words"]
-    bound = k2a.bound_s(n1, config["frames"] * n1, bits)
-    if config["cross_check"]:
-        bound += k2a.bound_s(n1, n1, bits)
-    return bound
+"""K2a's share of its roofline in ``orbmap.kitti11``: a query's least time
+for the cross-checked exact 2-NN (``rooflines/k2a.least_s``, from the
+run's configuration) over the device's busy time per traced query
+(torch.profiler: the union of every kernel, copy and set), whatever
+kernels run the search, its chunks and their merges included. The same
+quantity as ``k2a_roofline``, under the name of its own cell."""
 
 
 def read(ctx):
-    k2a = ctx.roofline("k2a")
     trace = ctx.trace
     config = getattr(ctx.driver, "config", None)
-    if not trace or not config:
+    if not trace or not config or trace["busy_s"] <= 0:
         return None
-    device_s = sum(s for name, (s, _) in trace["ops"].items()
-                   if k2a.KERNEL.search(name))
-    if device_s <= 0:
-        return None
-    return 100.0 * least_s(config, k2a) * trace["requests"] / device_s
+    least = ctx.roofline("k2a").least_s(config)
+    return 100.0 * least * trace["requests"] / trace["busy_s"]

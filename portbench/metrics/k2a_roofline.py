@@ -1,17 +1,14 @@
-"""K2a's share of its roofline: the least time of the cell's K2a calls per
-request (``rooflines/k2a.py``) over K2a's device time per request, summed
-over its launches in the traced requests (torch.profiler)."""
+"""K2a's share of its roofline: a query's least time for the cross-checked
+exact 2-NN (``rooflines/k2a.least_s``, from the run's configuration) over
+the device's busy time per traced query (torch.profiler: the union of
+every kernel, copy and set), whatever kernels run the search. The same
+quantity as ``k2a_roofline.kitti11``, under the name of its own cell."""
 
 
 def read(ctx):
-    k2a = ctx.roofline("k2a")
     trace = ctx.trace
-    calls = getattr(ctx.driver, "k2a_calls", None)
-    if not trace or not calls:
+    config = getattr(ctx.driver, "config", None)
+    if not trace or not config or trace["busy_s"] <= 0:
         return None
-    device_s = sum(s for name, (s, _) in trace["ops"].items()
-                   if k2a.KERNEL.search(name))
-    if device_s <= 0:
-        return None
-    bound = sum(k2a.bound_s(*c) for c in calls)
-    return 100.0 * bound * trace["requests"] / device_s
+    least = ctx.roofline("k2a").least_s(config)
+    return 100.0 * least * trace["requests"] / trace["busy_s"]

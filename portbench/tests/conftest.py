@@ -20,6 +20,16 @@ SMALL = {
 }
 
 
+@pytest.fixture(autouse=True, scope="session")
+def one_host_thread():
+    """One host thread for PyTorch's CPU ops, as ``run.py`` sets it: test
+    workers side by side would otherwise oversubscribe the cores, and a
+    short window could then hold a single request."""
+    import torch
+
+    torch.set_num_threads(1)
+
+
 @pytest.fixture
 def card():
     """The first CUDA card; skips without one."""

@@ -162,12 +162,15 @@ def test_run_without_the_program_fails(tmp_path):
 
 
 def test_roofline_of_a_seq00_query():
+    """0.9335 ms a query: the forward 2048 x 9,299,968 and the reverse
+    2048 x 2048 at 256 bits, at the b1 tensor-core rate; the product
+    binds, not the bytes."""
     k2a = harness.load_module(harness.HERE / "rooflines" / "k2a.py")
     rows = 4541 * 2048
-    bound = k2a.bound_s(2048, rows, 256) + k2a.bound_s(rows, 2048, 256)
-    assert round(bound * 1e3, 2) == 9.86
-    assert k2a.ops(2048, rows, 256) / k2a.INT8_TENSOR_OPS_S > (
+    config = harness.find_cell("orbmap.seq00", BENCH).config
+    least = k2a.least_s(config)
+    assert round(least * 1e3, 4) == 0.9335
+    assert least == k2a.bound_s(2048, rows, 256) + k2a.bound_s(2048, 2048,
+                                                                 256)
+    assert k2a.ops(2048, rows, 256) / k2a.B1_TENSOR_OPS_S > (
         k2a.bytes_moved(2048, rows, 256) / k2a.HBM_BYTES_S)
-    assert k2a.KERNEL.search("void knn2_kernel<8, 0>(unsigned int const*)")
-    assert k2a.KERNEL.search("knn2_wide_kernel(unsigned int const*)")
-    assert not k2a.KERNEL.search("knn2_l2_kernel<0>(float const*)")

@@ -22,12 +22,11 @@ def test_traced_cpu_run_reports_the_program_spans():
     metrics = out["metrics"]
     assert metrics["match_enqueue_ms"]["value"] > 0
     assert metrics["match_enqueue_ms"]["unit"] == "ms"
-    # per query: the (1, 3, N1) candidates and every map row's best query,
-    # int32 each
+    # per query: the (1, 3, N1) candidates and the (1, N1) reverse answers
+    # of the rows the matches name, int32 each
     n1 = small["config"]["slots"]
-    rows = small["config"]["frames"] * n1
     assert metrics["collective_mb"]["value"] == pytest.approx(
-        4 * (3 * n1 + rows) / 1e6, rel=1e-12)
+        4 * (3 * n1 + n1) / 1e6, rel=1e-12)
     assert metrics["collective_mb"]["unit"] == "MB/query"
     assert not set(DEVICE_CLOCK) & set(metrics)
     for name in ("knn.sharded_match", "knn.forward", "knn.reverse",

@@ -127,9 +127,6 @@ class Driver:
         self.mesh = pmesh.make_mesh(1, device=device)
         self._split("process_group", t0)
         self.results: dict[int, np.ndarray] = {}
-        # K2a's calls per query, (rows, columns, bits): forward, reverse
-        self.k2a_calls = [(slots, self.rows, 32 * words),
-                          (self.rows, slots, 32 * words)]
 
     def _split(self, name: str, t0: float) -> None:
         if self.device.type == "cuda":
